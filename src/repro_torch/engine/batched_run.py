@@ -1,0 +1,418 @@
+"""Batched execution engine for the MENAGE software twin, in PyTorch.
+
+The numpy :func:`repro_torch.core.accelerator.run` is the cycle-accurate
+oracle: it walks timesteps, rounds, MEM_S&N rows and engines in Python.
+This module executes the *same* mapped model — the same control-memory
+content — as batched tensor code on one device:
+
+  * :func:`pack_model` turns a :class:`MappedModel` into a
+    :class:`PackedModel`: per layer, the effective weights of every round,
+    replayed out of the control memories and scattered to global
+    destination columns (padded to the reference's block size), as the one
+    tile the synapse kernel reads; per round, the host-side dispatch
+    geometry behind the statistics.
+  * :func:`run_batched` executes ``spikes[B, T, n_in]`` through the chain.
+    Per layer, the ``B*T`` spike vectors become padded event lists via
+    ``events_from_spikes`` (the software MEM_E writer), synaptic
+    accumulation runs through the ``event_synapse`` kernel, and LIF over T
+    is one ``lif_scan`` launch.  On the CPU each kernel is its plain
+    PyTorch version.
+
+Equivalence contract (tested): output spikes are **bit-identical** to the
+oracle's for every batch element, and the reported :class:`DispatchStats`
+aggregates match it field for field.  Events are emitted in ascending
+source order, the oracle's accumulation order, and every float32 add and
+multiply is rounded on its own, so even the partial sums agree.
+
+Data layout:
+
+  PackedModel.layers[l].rounds[r]          host geometry + stats vectors
+  PackedModel.layers[l].w_fused            f32 [n_src, n_dest_pad], all rounds
+  PackedModel.layers[l].w_packed           i8 [n_src, n_dest_pad*bits/8]
+  events                                   i32 [B*T, E]   (pad = -1)
+  currents                                 f32 [B, T, n_dest_pad]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+
+import numpy as np
+import torch
+
+from repro_torch.core.accelerator import MappedModel
+from repro_torch.core.energy import (FRAME_CYCLES, AcceleratorSpec,
+                                     EnergyReport, energy_model)
+from repro_torch.core.lif import LIFParams
+from repro_torch.core.memories import DispatchStats, stats_vectors
+from repro_torch.core.quant import check_bits, lanes_per_byte, pack_signmag
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+# The reference's Pallas dest tile: kept for the padded widths, so that
+# n_dest_pad equals the reference's (the CUDA kernels need no padding).
+DEFAULT_BLOCK_D = 256
+
+
+def _mem_e_depth(layer: "PackedLayer", max_events: int | None) -> int:
+    """Static MEM_E depth for a layer: full fan-in unless capped — shared by
+    the kernel dispatch and the overflow accounting, which must agree."""
+    return layer.n_src if max_events is None else min(max_events, layer.n_src)
+
+
+def _pad_dest(n_dest: int, block_d: int) -> int:
+    """The reference's padded dest width: unpadded when a single block
+    covers the layer, else the next multiple of ``block_d``."""
+    if n_dest <= block_d:
+        return n_dest
+    return -(-n_dest // block_d) * block_d
+
+
+@dataclasses.dataclass
+class PackedRound:
+    """One capacitor-assignment round's dispatch geometry, on the host: the
+    MEM_S&N row count and row width, and the per-source (rows, cycles,
+    MACs) vectors behind the batched :class:`DispatchStats`.  The round's
+    weights live only in the layer's fused tile."""
+
+    n_rows: int
+    row_bytes: int
+    stats: tuple[np.ndarray, np.ndarray, np.ndarray]
+
+    def stats_vectors(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self.stats
+
+
+@dataclasses.dataclass
+class PackedLayer:
+    rounds: list[PackedRound]
+    n_src: int = 0
+    n_dest: int = 0
+    n_dest_pad: int = 0
+    # the kernel's weight tile: every round fused (None on packed layers)
+    w_fused: torch.Tensor | None = None   # f32 [n_src, n_dest_pad]
+    # packed-operand path (pack_model(packed_ops=True)): the layer's fused
+    # weight tile as sign-magnitude codes packed ``8/bits`` destination
+    # lanes per int8 byte, plus the per-tensor quant scale
+    w_packed: torch.Tensor | None = None  # i8 [n_src, n_dest_pad * bits / 8]
+    scale: torch.Tensor | None = None     # f32 [1, 1]
+    bits: int = 8
+
+
+@dataclasses.dataclass(eq=False)
+class PackedModel:
+    layers: list[PackedLayer]
+    lif: LIFParams = LIFParams()
+    spec: AcceleratorSpec | None = None
+    block_d: int = DEFAULT_BLOCK_D
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def n_in(self) -> int:
+        return self.layers[0].n_src
+
+    @property
+    def n_out(self) -> int:
+        return self.layers[-1].n_dest
+
+
+def _pack_layer_codes(layer, w_host: np.ndarray, bits: int, device
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host-side operand packing for one layer: recover the integer codes
+    from the replayed (dequantized) tile and pack them into sign-magnitude
+    sub-byte lanes.  Exactness is *asserted*: every stored table value must
+    equal ``fl32(code * scale)`` bit for bit, which is what makes the packed
+    kernel's dequantization reproduce the dense path exactly."""
+    scale = np.float32(layer.scale)
+    q = np.rint(w_host / scale)
+    qmax = 2 ** (bits - 1) - 1
+    if np.abs(q).max(initial=0) > qmax:
+        raise ValueError(
+            f"recovered codes exceed the {bits}-bit range [-{qmax}, {qmax}] "
+            f"— layer was not quantized at {bits} bits")
+    if not (q.astype(np.float32) * scale == w_host).all():
+        raise ValueError(
+            "packed-operand exactness violated: table values are not "
+            "fl32(code * scale) — the layer's stored weights do not come "
+            "from quantize_symmetric at this scale")
+    w_packed = pack_signmag(q.astype(np.int8), bits)
+    return (torch.from_numpy(w_packed).to(device),
+            torch.tensor([[scale]], dtype=torch.float32, device=device))
+
+
+def _fused_tile(layer, n_dest_pad: int,
+                weight_dict: np.ndarray | None) -> np.ndarray:
+    """Replay a layer's rounds out of the control memories into one
+    ``[n_src, n_dest_pad]`` f32 tile on the host: the operand of both
+    synapse kernels.  Every round is walked as COO triplets
+    (:meth:`MemTables.replay_coo`, the vectorised form of the per-row
+    replay); compressed models gather the values from the shared
+    dictionary.  Rounds target disjoint destination columns and each
+    (src, dest) pair occurs at most once, so the tile equals the sum of the
+    rounds' dense replays bit for bit (tested)."""
+    w = np.zeros((layer.n_src, n_dest_pad), dtype=np.float32)
+    for rnd in layer.rounds:
+        if weight_dict is not None:
+            src, dest_local, widx = rnd.tables.replay_coo_ptr()
+            vals = weight_dict[widx]
+        else:
+            src, dest_local, vals = rnd.tables.replay_coo()
+        np.add.at(w, (src, rnd.neuron_ids[dest_local]), vals)
+    return w
+
+
+def pack_model(model: MappedModel, block_d: int = DEFAULT_BLOCK_D,
+               packed_ops: bool = False, device="cuda") -> PackedModel:
+    """Build the device tensors of a mapped model on ``device`` (default
+    the card; ``device="cpu"`` for the plain path).  The effective weights
+    are replayed from the control memories, not taken from the original
+    matrices — the engine executes what is actually in the SRAM.
+
+    Each layer ships one fused f32 weight tile for the ``event_synapse``
+    kernel.  ``packed_ops=True`` ships it instead as packed sign-magnitude
+    codes (``8/bits`` destination lanes per int8 byte) plus the layer
+    scale, and dispatch routes through the ``event_synapse_packed`` kernel.
+    Packing asserts ``fl32(code * scale)`` reproduces the replayed values
+    bit for bit, so the packed engine stays bit-exact with the dense one at
+    every bit-width (tested)."""
+    device = resolve_device(device)
+    weight_dict = getattr(model, "weight_dict", None)
+    if weight_dict is not None:
+        weight_dict = np.asarray(weight_dict, dtype=np.float32)
+    if packed_ops and block_d % lanes_per_byte(2):
+        raise ValueError(f"packed operands need block_d divisible by "
+                         f"{lanes_per_byte(2)} byte lanes; got {block_d}")
+    layers = []
+    for layer in model.layers:
+        bits = check_bits(int(getattr(layer, "bits", 8)))
+        n_dest_pad = _pad_dest(layer.n_dest, block_d)
+        if packed_ops:
+            # byte lanes must tile evenly: extra columns carry 0-codes,
+            # contribute exact 0.0 currents, and are sliced off post-LIF
+            ell = lanes_per_byte(bits)
+            n_dest_pad = -(-n_dest_pad // ell) * ell
+        rounds = [PackedRound(
+            n_rows=rnd.tables.n_rows,
+            row_bytes=(rnd.tables.bits_per_row() + 7) // 8,
+            stats=stats_vectors(rnd.tables.e2a_count, rnd.tables.e2a_addr,
+                                rnd.tables.sn_valid))
+            for rnd in layer.rounds]
+        packed_layer = PackedLayer(rounds=rounds, n_src=layer.n_src,
+                                   n_dest=layer.n_dest, n_dest_pad=n_dest_pad,
+                                   bits=bits)
+        w_host = _fused_tile(layer, n_dest_pad, weight_dict)
+        if packed_ops:
+            packed_layer.w_packed, packed_layer.scale = _pack_layer_codes(
+                layer, w_host, bits, device)
+        else:
+            packed_layer.w_fused = torch.from_numpy(w_host).to(device)
+        layers.append(packed_layer)
+    return PackedModel(layers=layers, lif=model.lif, spec=model.spec,
+                       block_d=block_d, device=device)
+
+
+# The first call of each (model, B, T, max_events) — where the reference's
+# jit would trace and compile — is counted, so a serving front end can show
+# that its bucket grid bounds the distinct shapes the engine sees.
+_trace_count = 0
+_seen_shapes: "weakref.WeakKeyDictionary[PackedModel, set]" = \
+    weakref.WeakKeyDictionary()
+
+
+def trace_count() -> int:
+    """How many distinct ``(model, B, T, max_events)`` calls the engine has
+    seen — the shape-cache probe used by tests and the serving layer."""
+    return _trace_count
+
+
+def _note_shape(packed: PackedModel, b: int, t: int,
+                max_events: int | None) -> None:
+    global _trace_count
+    seen = _seen_shapes.setdefault(packed, set())
+    if (b, t, max_events) not in seen:
+        seen.add((b, t, max_events))
+        _trace_count += 1
+
+
+def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
+                  max_events: int | None) -> list[torch.Tensor]:
+    """Per-layer output spike trains ([B, T, n_dest] each; the last entry is
+    the model output).  Dispatch = MEM_E write + event_synapse kernel; LIF =
+    one lif_scan launch per layer."""
+    b, t, _ = spikes.shape
+    outs = []
+    for layer in packed.layers:
+        events = ops.events_from_spikes(spikes.reshape(b * t, layer.n_src),
+                                        _mem_e_depth(layer, max_events))
+        if layer.w_packed is not None:
+            currents = ops.event_synapse_packed(
+                events, layer.w_packed, layer.scale, bits=layer.bits)
+        else:
+            currents = ops.event_synapse(events, layer.w_fused)
+        out = ops.lif_scan(currents.reshape(b, t, layer.n_dest_pad),
+                           packed.lif)
+        spikes = out[..., :layer.n_dest]
+        outs.append(spikes)
+    return outs
+
+
+# ------------------------------------------------------------ batched result
+
+@dataclasses.dataclass
+class BatchedDispatchStats:
+    """Per-sample, per-step dispatch statistics (``[B, T]`` int64 arrays);
+    ``sample(b)`` recovers the oracle's :class:`DispatchStats` exactly."""
+
+    cycles: np.ndarray
+    rows_touched: np.ndarray
+    engine_ops: np.ndarray
+    events: np.ndarray
+    sn_bytes_touched: np.ndarray
+    mem_e_peak: np.ndarray      # [B]
+
+    def sample(self, b: int) -> DispatchStats:
+        return DispatchStats(
+            cycles=self.cycles[b], rows_touched=self.rows_touched[b],
+            engine_ops=self.engine_ops[b], events=self.events[b],
+            sn_bytes_touched=self.sn_bytes_touched[b],
+            mem_e_peak=int(self.mem_e_peak[b]))
+
+
+@dataclasses.dataclass
+class BatchedRunResult:
+    out_spikes: np.ndarray                       # [B, T, n_out]
+    per_layer_stats: list[BatchedDispatchStats]
+    per_layer_util: list[np.ndarray]             # [B, T] float64
+    overflow: list[np.ndarray]                   # [B, T] events dropped
+    spec: AcceleratorSpec | None = None
+    per_layer_bits: list[int] | None = None      # stored word widths (energy)
+
+    @property
+    def batch(self) -> int:
+        return self.out_spikes.shape[0]
+
+    def sample_stats(self, b: int) -> list[DispatchStats]:
+        return [s.sample(b) for s in self.per_layer_stats]
+
+    def sample_energy(self, b: int,
+                      frame_cycles: int | None = FRAME_CYCLES) -> EnergyReport:
+        """Same signature as :func:`repro_torch.core.energy.energy_model`:
+        ``frame_cycles`` defaults to the calibrated frame period, ``None``
+        means throughput mode."""
+        if self.spec is None:
+            raise ValueError("pack_model carried no AcceleratorSpec")
+        return energy_model(self.spec, self.sample_stats(b),
+                            frame_cycles=frame_cycles,
+                            per_core_bits=self.per_layer_bits)
+
+
+def _layer_stats(in_spikes: np.ndarray, layer: PackedLayer,
+                 max_events: int | None,
+                 sn_capacity_rows: int | None
+                 ) -> tuple[BatchedDispatchStats, np.ndarray, np.ndarray]:
+    """Vectorized dispatch accounting for one layer: every per-step counter
+    is a dot product of the accepted-event raster with a per-source table
+    vector, reproducing the oracle's Python accumulation in int64.
+
+    A finite MEM_E depth accepts only the ``depth`` lowest source indices
+    per step (FIFO write order) — dropped events arrive (``events``) but
+    dispatch nothing, exactly as the kernel path truncates them."""
+    sp = (in_spikes > 0)
+    b, t, _ = sp.shape
+    depth = _mem_e_depth(layer, max_events)
+    if depth >= layer.n_src:
+        keep = sp                       # cap can never bind
+    else:
+        keep = sp & (np.cumsum(sp, axis=2) <= depth)
+    shape = (b, t)
+    cycles = np.zeros(shape, dtype=np.int64)
+    rows = np.zeros(shape, dtype=np.int64)
+    mac = np.zeros(shape, dtype=np.int64)
+    bytes_t = np.zeros(shape, dtype=np.int64)
+    util = np.zeros(shape, dtype=np.float64)
+    total_rows = sum(r.n_rows for r in layer.rounds)
+    cap = sn_capacity_rows or max(total_rows, 1)
+    for rnd in layer.rounds:
+        rows_v, cyc_v, ops_v = rnd.stats_vectors()
+        r_rows = keep @ rows_v
+        cycles += keep @ cyc_v
+        rows += r_rows
+        mac += keep @ ops_v
+        bytes_t += r_rows * rnd.row_bytes
+        util += r_rows.astype(np.float64) / cap
+    events = sp.sum(axis=2, dtype=np.int64)
+    overflow = np.maximum(events - depth, 0)
+    stats = BatchedDispatchStats(cycles=cycles, rows_touched=rows,
+                                 engine_ops=mac, events=events,
+                                 sn_bytes_touched=bytes_t,
+                                 mem_e_peak=np.minimum(events, depth)
+                                 .max(axis=1, initial=0))
+    return stats, util, overflow
+
+
+def _finalize(packed: PackedModel, in_spikes: np.ndarray,
+              layer_outs: list[np.ndarray], max_events: int | None,
+              sn_capacity_rows: int | None,
+              with_stats: bool) -> BatchedRunResult:
+    """Host copies of the layer outputs -> :class:`BatchedRunResult`,
+    including the host-side dispatch accounting."""
+    out = layer_outs[-1]
+    bits = [l.bits for l in packed.layers]
+    if not with_stats:
+        return BatchedRunResult(out_spikes=out, per_layer_stats=[],
+                                per_layer_util=[], overflow=[],
+                                spec=packed.spec, per_layer_bits=bits)
+    stats_all, util_all, drop_all = [], [], []
+    layer_in = in_spikes
+    for li, layer in enumerate(packed.layers):
+        stats, util, overflow = _layer_stats(layer_in, layer, max_events,
+                                             sn_capacity_rows)
+        stats_all.append(stats)
+        util_all.append(util)
+        drop_all.append(overflow)
+        layer_in = layer_outs[li]
+    return BatchedRunResult(out_spikes=out, per_layer_stats=stats_all,
+                            per_layer_util=util_all, overflow=drop_all,
+                            spec=packed.spec, per_layer_bits=bits)
+
+
+def run_batched(model: MappedModel | PackedModel, in_spikes, *,
+                max_events: int | None = None,
+                sn_capacity_rows: int | None = None,
+                with_stats: bool = True,
+                device=None) -> BatchedRunResult:
+    """Execute a batch of spike trains ``[B, T, n_in]`` through the chain.
+
+    A :class:`PackedModel` runs on its own device; a :class:`MappedModel`
+    is packed onto ``device`` first (default the card — with no card, pass
+    ``device="cpu"``).
+
+    Bit-exact vs. the oracle ``run`` called with the same ``max_events``
+    (tested, including finite caps).  A tight ``max_events`` models the
+    finite MEM_E depth: excess events are dropped lowest-priority-last
+    (ascending source index kept) before dispatch, counted per step in
+    ``result.overflow``, and the loss propagates to downstream layers
+    through the LIF exactly as on the oracle.
+
+    Degenerate shapes are valid inputs: ``B=0`` returns an empty result,
+    ``T=1`` and all-silent batches follow the ordinary path.
+    ``with_stats=False`` skips the host-side accounting.
+    """
+    if isinstance(model, PackedModel):
+        packed = model
+        if device is not None and resolve_device(device) != packed.device:
+            raise ValueError(f"model is packed on {packed.device}, "
+                             f"not {device}")
+    else:
+        packed = model.pack(device="cuda" if device is None else device)
+    host = np.asarray(in_spikes, dtype=np.float32)
+    if host.ndim != 3 or host.shape[2] != packed.n_in:
+        raise ValueError(f"expected [B, T, {packed.n_in}], got {host.shape}")
+    b, t, _ = host.shape
+    _note_shape(packed, b, t, max_events)
+    spikes = torch.from_numpy(host).to(packed.device)
+    layer_outs = [o.cpu().numpy() for o in
+                  _forward_impl(packed, spikes, max_events)]
+    return _finalize(packed, host, layer_outs, max_events, sn_capacity_rows,
+                     with_stats)

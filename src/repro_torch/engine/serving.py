@@ -1,0 +1,326 @@
+"""Continuous-batching front end: variable-length event streams -> buckets.
+
+Production DVS traffic is a stream of requests, each its own spike train
+``[T_i, n_in]`` with its own duration.  A :class:`BucketPolicy` fixes a
+small grid of padded ``(B, T)`` shapes, so the engine sees a bounded set of
+shapes however varied the traffic; the
+scheduler groups pending requests by time bucket, chunks them into batch
+buckets, zero-pads, runs, and slices each request's exact result back out.
+
+Why padding is free (bit-wise): the LIF scan is causal, so zero-current
+steps appended after ``T_i`` cannot change steps ``< T_i``; zero batch rows
+are independent samples that get discarded.  Every per-request result —
+output spikes, per-step DispatchStats, utilization, overflow, energy — is
+therefore bit-identical to running that request alone at its native shape,
+and hence to the numpy oracle (tested, ``tests/test_torch_serving.py``).
+
+At most ``policy.n_buckets`` distinct shapes ever reach the engine,
+verified through the ``trace_count()`` probe.  Single device: the engine
+runs on the device of the packed model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+
+import numpy as np
+
+from repro_torch.core.energy import FRAME_CYCLES, EnergyReport, energy_model
+from repro_torch.core.memories import DispatchStats
+from repro_torch.device import resolve_device
+from repro_torch.engine import batched_run as br
+
+_log = logging.getLogger(__name__)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+class OverlongRequestError(ValueError):
+    """Raised at admission when requests exceed the policy's largest time
+    bucket and auto-extension is off.  ``requests`` lists ``(index,
+    length)`` per offending request so callers can reject those requests
+    individually instead of failing the whole batch plan."""
+
+    def __init__(self, requests: list[tuple[int, int]], t_max: int):
+        self.requests = list(requests)
+        self.t_max = t_max
+        detail = ", ".join(f"request {i}: {t} steps" for i, t in self.requests)
+        super().__init__(
+            f"{len(self.requests)} request(s) exceed the largest time bucket "
+            f"({t_max}): {detail} — pass overlong='extend' to grow the grid, "
+            f"or reject these requests at admission")
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPolicy:
+    """The fixed ``(B, T)`` shape grid the engine is allowed to see.
+
+    ``batch_sizes`` and ``time_steps`` are ascending; a request of length
+    ``T_i`` lands in the smallest time bucket ``>= T_i``, and a chunk of
+    ``k`` requests pads to the smallest batch bucket ``>= k`` (chunks are
+    capped at ``max_batch``).  ``n_buckets`` bounds the engine's shapes.
+    """
+
+    batch_sizes: tuple[int, ...] = (1, 4, 16)
+    time_steps: tuple[int, ...] = (8, 16, 32)
+
+    def __post_init__(self):
+        for name in ("batch_sizes", "time_steps"):
+            v = getattr(self, name)
+            if not (v and all(x > 0 for x in v)
+                    and list(v) == sorted(set(v))):
+                raise ValueError(f"{name} must be ascending unique positive "
+                                 f"ints, got {v}")
+
+    @property
+    def max_batch(self) -> int:
+        return self.batch_sizes[-1]
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.batch_sizes) * len(self.time_steps)
+
+    def t_bucket(self, t: int) -> int:
+        for tb in self.time_steps:
+            if t <= tb:
+                return tb
+        raise ValueError(
+            f"request of {t} steps exceeds the largest time bucket "
+            f"{self.time_steps[-1]}; extend the policy "
+            f"(BucketPolicy.covering picks buckets from observed lengths)")
+
+    def fits(self, t: int) -> bool:
+        """Whether a ``t``-step request lands in the grid at all — the
+        admission check that keeps :meth:`t_bucket` from failing mid-plan."""
+        return 0 < t <= self.time_steps[-1]
+
+    def with_time_bucket(self, t: int) -> "BucketPolicy":
+        """The policy extended to cover a ``t``-step request: the largest
+        bucket doubles until it covers ``t`` (geometric growth, so a stream
+        of ever-longer requests costs O(log T) new traces, not one each).
+        Returns ``self`` unchanged when ``t`` already fits."""
+        if t <= 0:
+            raise ValueError(f"cannot extend the grid to a {t}-step request")
+        if self.fits(t):
+            return self
+        tb = self.time_steps[-1]
+        while tb < t:
+            tb *= 2
+        return dataclasses.replace(self, time_steps=self.time_steps + (tb,))
+
+    def b_bucket(self, b: int) -> int:
+        if not 0 < b <= self.max_batch:
+            raise ValueError(f"batch of {b} outside (0, {self.max_batch}]")
+        return next(bb for bb in self.batch_sizes if b <= bb)
+
+    @classmethod
+    def covering(cls, lengths, *, max_batch: int = 16) -> "BucketPolicy":
+        """A policy whose time buckets are the powers of two covering the
+        observed request ``lengths`` and whose batch buckets are powers of
+        four up to ``max_batch``."""
+        t_max = max(int(t) for t in lengths)
+        steps, t = [], 1
+        while t < t_max:
+            t *= 2
+        for tb in (max(t // 4, 1), max(t // 2, 1), t):
+            if tb not in steps:
+                steps.append(tb)
+        bs, b = [], 1
+        while b < max_batch:
+            bs.append(b)
+            b *= 4
+        bs.append(max_batch)
+        return cls(batch_sizes=tuple(sorted(set(bs))),
+                   time_steps=tuple(sorted(set(steps))))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """One engine call: which requests ride it and the padded shape."""
+
+    indices: tuple[int, ...]
+    b_pad: int
+    t_pad: int
+
+
+def plan_batches(lengths, policy: BucketPolicy) -> list[BatchPlan]:
+    """Deterministic scheduler: group requests by time bucket (arrival order
+    preserved within a bucket), chunk each group at ``max_batch``, pad each
+    chunk's batch to its batch bucket.  Every index appears exactly once."""
+    groups: dict[int, list[int]] = {}
+    for i, t in enumerate(lengths):
+        if t <= 0:
+            raise ValueError(f"request {i} has {t} time steps")
+        groups.setdefault(policy.t_bucket(int(t)), []).append(i)
+    plans = []
+    for t_pad in sorted(groups):
+        idxs = groups[t_pad]
+        for lo in range(0, len(idxs), policy.max_batch):
+            chunk = idxs[lo:lo + policy.max_batch]
+            plans.append(BatchPlan(indices=tuple(chunk),
+                                   b_pad=policy.b_bucket(len(chunk)),
+                                   t_pad=t_pad))
+    return plans
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """One request's slice of a bucketed run — the same surfaces as the
+    oracle :class:`repro_torch.core.accelerator.RunResult`, bit-exact."""
+
+    out_spikes: np.ndarray                      # [T_i, n_out]
+    stats: list[DispatchStats]                  # per layer (empty w/o stats)
+    util: list[np.ndarray]                      # [T_i] per layer
+    overflow: list[np.ndarray]                  # [T_i] per layer
+    spec: object = None
+    per_layer_bits: "list[int] | None" = None   # stored word widths (energy)
+
+    def energy(self, frame_cycles: int | None = FRAME_CYCLES) -> EnergyReport:
+        """Same signature as :func:`repro_torch.core.energy.energy_model`: the
+        frame period defaults to the calibrated ``FRAME_CYCLES`` constant,
+        ``None`` means throughput mode (no idle between frames).
+        Mixed-precision models price the C2C MAC energy at each layer's
+        stored word width."""
+        if self.spec is None or not self.stats:
+            raise ValueError("energy needs with_stats=True and an "
+                             "AcceleratorSpec")
+        return energy_model(self.spec, self.stats, frame_cycles=frame_cycles,
+                            per_core_bits=self.per_layer_bits)
+
+
+def _slice_request(res: "br.BatchedRunResult", row: int, t: int,
+                   with_stats: bool) -> RequestResult:
+    out = res.out_spikes[row, :t]
+    if not with_stats:
+        return RequestResult(out_spikes=out, stats=[], util=[], overflow=[],
+                             spec=res.spec, per_layer_bits=res.per_layer_bits)
+    stats = []
+    for bs in res.per_layer_stats:
+        full = bs.sample(row)
+        stats.append(DispatchStats(
+            cycles=full.cycles[:t], rows_touched=full.rows_touched[:t],
+            engine_ops=full.engine_ops[:t], events=full.events[:t],
+            sn_bytes_touched=full.sn_bytes_touched[:t],
+            # padded steps are silent -> they contribute 0 to the peak
+            mem_e_peak=full.mem_e_peak))
+    return RequestResult(
+        out_spikes=out, stats=stats,
+        util=[u[row, :t] for u in res.per_layer_util],
+        overflow=[o[row, :t] for o in res.overflow],
+        spec=res.spec, per_layer_bits=res.per_layer_bits)
+
+
+# The per-engine-call telemetry record schema, the reference's tuple.
+# ``seq`` is a monotonic per-producer dispatch ordinal and ``ts`` the
+# producer's clock at dispatch; ``seconds`` is wall-measured engine time.
+TELEMETRY_KEYS = ("seq", "ts", "b_pad", "t_pad", "n_requests", "events",
+                  "out_spikes", "seconds")
+
+
+def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
+                 max_events: int | None = None,
+                 sn_capacity_rows: int | None = None,
+                 with_stats: bool = True,
+                 seq: int = 0) -> tuple[list[RequestResult], dict]:
+    """One engine call: zero-pad ``plan``'s requests into the plan's
+    ``(b_pad, t_pad)`` bucket, run on the packed model's device, and slice
+    each request's bit-exact result back out.
+
+    Returns the per-request results (aligned with ``plan.indices``) and one
+    ``TELEMETRY_KEYS`` record, stamped with ``seq`` and the monotonic
+    clock; ``seconds`` ends after the results are back on the host, so it
+    covers the device work.
+    """
+    ts = time.monotonic()
+    padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in),
+                      dtype=np.float32)
+    for row, i in enumerate(plan.indices):
+        padded[row, :streams[i].shape[0]] = streams[i]
+    t0 = time.perf_counter()
+    res = br.run_batched(packed, padded, max_events=max_events,
+                         sn_capacity_rows=sn_capacity_rows,
+                         with_stats=with_stats)
+    dt = time.perf_counter() - t0
+    record = {
+        "seq": int(seq),
+        "ts": ts,
+        "b_pad": plan.b_pad, "t_pad": plan.t_pad,
+        "n_requests": len(plan.indices),
+        "events": int(sum((streams[i] > 0).sum() for i in plan.indices)),
+        "out_spikes": int(sum(
+            res.out_spikes[row, :streams[i].shape[0]].sum()
+            for row, i in enumerate(plan.indices))),
+        "seconds": dt}
+    results = [_slice_request(res, row, streams[i].shape[0], with_stats)
+               for row, i in enumerate(plan.indices)]
+    return results, record
+
+
+def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
+                 max_events: int | None = None,
+                 sn_capacity_rows: int | None = None,
+                 with_stats: bool = True,
+                 telemetry: list | None = None,
+                 overlong: str = "error",
+                 device=None) -> list[RequestResult]:
+    """Serve a list of variable-length spike streams (``[T_i, n_in]`` each)
+    through the bucketed engine; results come back in request order.
+
+    A :class:`~repro_torch.engine.batched_run.PackedModel` serves on its own
+    device; a mapped model is packed onto ``device`` first (default the
+    card — with no card, pass ``device="cpu"``).
+
+    ``policy`` defaults to :meth:`BucketPolicy.covering` over the observed
+    lengths.  ``telemetry``, if a list, receives one dict per engine call
+    (padded shape, request count, events served, wall seconds).
+
+    ``overlong`` governs requests longer than the policy's largest time
+    bucket, checked at admission (before any engine work): ``"error"``
+    raises :class:`OverlongRequestError` naming every offending request;
+    ``"extend"`` grows the grid geometrically (new shapes, logged) so the
+    rest of the batch is unaffected.
+    """
+    if overlong not in ("error", "extend"):
+        raise ValueError(f"overlong must be 'error' or 'extend', "
+                         f"got {overlong!r}")
+    if isinstance(model, br.PackedModel):
+        packed = model
+        if device is not None and resolve_device(device) != packed.device:
+            raise ValueError(f"model is packed on {packed.device}, "
+                             f"not {device}")
+    else:
+        packed = model.pack(device="cuda" if device is None else device)
+    streams = [np.asarray(s, dtype=np.float32) for s in streams]
+    for i, s in enumerate(streams):
+        if s.ndim != 2 or s.shape[1] != packed.n_in or s.shape[0] == 0:
+            raise ValueError(f"request {i}: expected [T > 0, {packed.n_in}], "
+                             f"got {s.shape}")
+    if not streams:
+        return []
+    lengths = [s.shape[0] for s in streams]
+    if policy is None:
+        policy = BucketPolicy.covering(lengths)
+    over = [(i, t) for i, t in enumerate(lengths) if not policy.fits(t)]
+    if over:
+        if overlong == "error":
+            raise OverlongRequestError(over, policy.time_steps[-1])
+        for _, t in over:
+            policy = policy.with_time_bucket(t)
+        _log.warning("run_bucketed: %d over-long request(s) extended the "
+                     "bucket grid to time_steps=%s (new shapes)",
+                     len(over), policy.time_steps)
+    results: list[RequestResult | None] = [None] * len(streams)
+    for seq, plan in enumerate(plan_batches(lengths, policy)):
+        reqs, record = execute_plan(packed, streams, plan,
+                                    max_events=max_events,
+                                    sn_capacity_rows=sn_capacity_rows,
+                                    with_stats=with_stats, seq=seq)
+        if telemetry is not None:
+            telemetry.append(record)
+        for row, i in enumerate(plan.indices):
+            results[i] = reqs[row]
+    return results  # type: ignore[return-value]

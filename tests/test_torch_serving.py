@@ -1,0 +1,183 @@
+"""The port's serving front end and packed-operand route against the
+reference: ``run_bucketed`` against the numpy oracle, the packed route
+against ``repro.engine.run_batched(model.pack(packed_ops=True))`` at
+2/4/8 bits, and the slice end to end from the reference MLP's parameters."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import (STAT_FIELDS, assert_stats_equal, map_both,
+                            pruned_mlp, spikes_for)
+from repro.core.accelerator import run as ref_run
+from repro.engine import batched_run as ref_br
+from repro.engine import serving as ref_serving
+
+from repro_torch.engine import batched_run as br
+from repro_torch.engine import serving
+
+torch.set_num_threads(1)
+
+
+def assert_results_equal(a, b, ctx=""):
+    """Two batched results (port vs reference engine), field for field."""
+    np.testing.assert_array_equal(a.out_spikes, np.asarray(b.out_spikes),
+                                  err_msg=f"{ctx} spikes")
+    assert len(a.per_layer_stats) == len(b.per_layer_stats)
+    for li, (sa, sb) in enumerate(zip(a.per_layer_stats, b.per_layer_stats)):
+        for f in STAT_FIELDS + ("mem_e_peak",):
+            np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f),
+                                          err_msg=f"{ctx} layer {li} {f}")
+        np.testing.assert_array_equal(a.per_layer_util[li],
+                                      b.per_layer_util[li])
+        np.testing.assert_array_equal(a.overflow[li], b.overflow[li])
+    for s in range(a.batch):
+        assert a.sample_energy(s).tops_per_w == b.sample_energy(s).tops_per_w
+
+
+@pytest.mark.parametrize("quant_bits", [2, 4, 8, [8, 4, 2]])
+def test_packed_route_matches_reference_packed_route(quant_bits):
+    rng = np.random.default_rng(3)
+    ref, port = map_both(pruned_mlp(rng, (20, 24, 12, 6), density=0.6), 4, 8,
+                         quant_bits=quant_bits)
+    spikes = spikes_for(rng, 3, 6, 20, 0.4)
+    packed = port.pack(packed_ops=True, device="cpu")
+    assert all(l.w_packed is not None for l in packed.layers)
+    got = br.run_batched(packed, spikes, max_events=9)
+    want = ref_br.run_batched(ref.pack(packed_ops=True), spikes, max_events=9)
+    assert_results_equal(got, want, f"bits={quant_bits}")
+    # and the packed route equals the port's dense route
+    dense = br.run_batched(port.pack(packed_ops=False, device="cpu"), spikes,
+                           max_events=9)
+    np.testing.assert_array_equal(got.out_spikes, dense.out_spikes)
+
+
+def test_run_bucketed_matches_oracle():
+    """Variable-length requests padded into buckets come back bit-exact
+    with the oracle run on each request alone."""
+    rng = np.random.default_rng(4)
+    ref, port = map_both(pruned_mlp(rng, (16, 20, 8), density=0.6), 4, 8)
+    streams = [spikes_for(rng, 1, t, 16, 0.4)[0] for t in (3, 9, 5, 16, 1)]
+    telemetry = []
+    policy = serving.BucketPolicy(batch_sizes=(1, 4), time_steps=(4, 16))
+    n0 = br.trace_count()
+    res = serving.run_bucketed(port, streams, policy=policy, max_events=7,
+                               telemetry=telemetry, device="cpu")
+    assert br.trace_count() - n0 <= policy.n_buckets
+    for r, s in zip(res, streams):
+        oracle = ref_run(ref, s, max_events=7)
+        np.testing.assert_array_equal(r.out_spikes, oracle.out_spikes)
+        for a, b in zip(r.stats, oracle.per_layer_stats):
+            assert_stats_equal(a, b)
+        for a, b in zip(r.util, oracle.per_layer_util):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(r.overflow, oracle.overflow):
+            np.testing.assert_array_equal(a, b)
+        assert vars(r.energy()) == vars(oracle.energy)
+    assert serving.TELEMETRY_KEYS == ref_serving.TELEMETRY_KEYS
+    assert [set(t) for t in telemetry] == \
+        [set(serving.TELEMETRY_KEYS)] * len(telemetry)
+    assert sum(t["n_requests"] for t in telemetry) == len(streams)
+
+
+def test_plan_and_policy_match_reference():
+    lengths = [3, 9, 5, 16, 1, 30, 8, 8, 2]
+    for policy_args in (dict(batch_sizes=(1, 4), time_steps=(4, 16, 32)),
+                        dict(batch_sizes=(2,), time_steps=(32,))):
+        got = serving.plan_batches(lengths,
+                                   serving.BucketPolicy(**policy_args))
+        want = ref_serving.plan_batches(lengths,
+                                        ref_serving.BucketPolicy(**policy_args))
+        assert [(p.indices, p.b_pad, p.t_pad) for p in got] == \
+            [(p.indices, p.b_pad, p.t_pad) for p in want]
+    for max_batch in (1, 5, 16):
+        a = serving.BucketPolicy.covering(lengths, max_batch=max_batch)
+        b = ref_serving.BucketPolicy.covering(lengths, max_batch=max_batch)
+        assert (a.batch_sizes, a.time_steps) == (b.batch_sizes, b.time_steps)
+    p = serving.BucketPolicy(time_steps=(8,))
+    assert p.with_time_bucket(20).time_steps == \
+        ref_serving.BucketPolicy(time_steps=(8,)).with_time_bucket(20).time_steps
+
+
+def test_overlong_requests():
+    rng = np.random.default_rng(5)
+    ref, port = map_both(pruned_mlp(rng, (8, 6)), 2, 4)
+    packed = port.pack(device="cpu")
+    streams = [spikes_for(rng, 1, t, 8, 0.5)[0] for t in (3, 12)]
+    policy = serving.BucketPolicy(batch_sizes=(2,), time_steps=(4, 8))
+    with pytest.raises(serving.OverlongRequestError) as e:
+        serving.run_bucketed(packed, streams, policy=policy)
+    assert e.value.requests == [(1, 12)]
+    res = serving.run_bucketed(packed, streams, policy=policy,
+                               overlong="extend")
+    np.testing.assert_array_equal(res[1].out_spikes,
+                                  ref_run(ref, streams[1]).out_spikes)
+
+
+def test_slice_end_to_end_from_reference_params():
+    """The reference MLP's own initialised parameters, pruned, carried
+    across as numpy, mapped and served by the port, equal the reference's
+    map + packed-route serving and its oracle."""
+    import jax
+    from repro.core.accelerator import map_model as ref_map
+    from repro.core.energy import AcceleratorSpec as RefSpec
+    from repro.snn.mlp import SNNConfig, init_snn
+
+    from repro_torch.configs.menage_paper import SNNConfig as PortSNN
+    from repro_torch.convert import specs_from_reference
+    from repro_torch.core.accelerator import map_model
+    from repro_torch.core.energy import AcceleratorSpec
+
+    cfg = SNNConfig(layer_sizes=(64, 48, 10))
+    params = [np.asarray(p) * 3 for p in init_snn(jax.random.key(1), cfg)]
+    for p in params:
+        p[np.abs(p) < np.median(np.abs(p))] = 0
+    port_cfg = PortSNN(layer_sizes=cfg.layer_sizes)
+    assert (port_cfg.lif.beta, port_cfg.lif.threshold, port_cfg.num_steps) \
+        == (cfg.lif.beta, cfg.lif.threshold, cfg.num_steps)
+    port = map_model(specs_from_reference(params),
+                     AcceleratorSpec("s", 2, 4, 8, 1 << 20), lif=port_cfg.lif)
+    ref = ref_map(params, RefSpec("s", 2, 4, 8, 1 << 20), lif=cfg.lif)
+    rng = np.random.default_rng(6)
+    streams = [spikes_for(rng, 1, t, 64, 0.3)[0] for t in (8, 5, 7, 2)]
+    got = serving.run_bucketed(port, streams, device="cpu")
+    want = ref_serving.run_bucketed(ref.pack(packed_ops=True), streams)
+    assert sum(int(r.out_spikes.sum()) for r in got) > 0
+    for g, w, s in zip(got, want, streams):
+        np.testing.assert_array_equal(g.out_spikes, w.out_spikes)
+        np.testing.assert_array_equal(g.out_spikes,
+                                      ref_run(ref, s).out_spikes)
+        for a, b in zip(g.stats, w.stats):
+            assert_stats_equal(a, b)
+
+
+def test_event_data_and_configs_match_reference():
+    from repro.configs import menage_paper as ref_cfg
+    from repro.data.events import EventDatasetConfig as RefData
+    from repro.data.events import _class_rate_maps as ref_maps
+
+    from repro_torch.configs import menage_paper as cfg
+    from repro_torch.data.events import (EventDatasetConfig,
+                                         _class_rate_maps,
+                                         synthetic_event_dataset)
+    for port_d, ref_d in ((EventDatasetConfig.nmnist_like(),
+                           RefData.nmnist_like()),
+                          (EventDatasetConfig.cifar10_dvs_like(down=8),
+                           RefData.cifar10_dvs_like(down=8))):
+        assert vars(port_d) == vars(ref_d)
+        np.testing.assert_array_equal(_class_rate_maps(port_d),
+                                      ref_maps(ref_d))
+    assert cfg.NMNIST_SNN.layer_sizes == ref_cfg.NMNIST_SNN.layer_sizes
+    assert cfg.CIFAR_SNN.layer_sizes[1:] == ref_cfg.CIFAR_SNN.layer_sizes[1:]
+    assert cfg.CIFAR_SNN.layer_sizes[0] == 32768
+    for a, b in ((cfg.NMNIST_SNN, ref_cfg.NMNIST_SNN),
+                 (cfg.CIFAR_SNN, ref_cfg.CIFAR_SNN)):
+        assert (a.lif.beta, a.lif.threshold, a.num_steps) == \
+            (b.lif.beta, b.lif.threshold, b.num_steps)
+    assert vars(cfg.ACCEL_1) == vars(ref_cfg.ACCEL_1)
+    assert vars(cfg.ACCEL_2) == vars(ref_cfg.ACCEL_2)
+    d = EventDatasetConfig.cifar10_dvs_like(down=16)
+    spikes, labels = synthetic_event_dataset(d, 2, np.random.default_rng(0))
+    assert spikes.shape == (20, d.num_steps, d.n_in)
+    assert set(np.unique(spikes)) <= {0.0, 1.0}
+    assert sorted(labels.tolist()) == sorted(list(range(10)) * 2)
