@@ -7,8 +7,11 @@ GPU: the quickest proof that the port builds and serves on the card.
 Phases, one line each:
 
   1. build     the CUDA kernels of src/repro_torch/kernels/csrc with nvcc
-  2. kernels   every kernel against its plain PyTorch version on the card,
-               bit-exact, at the shapes the serving run gives it, with times
+  2. kernels   every kernel of the serving path against its plain PyTorch
+               version on the card, bit-exact, at the shapes the serving
+               run gives it, with times; and c2c_matmul, the int8-weight
+               C2C-ladder MAC that no serving path runs, at the reference
+               benchmark's shape and as a dense input layer of the model
   3. serve     the paper's CIFAR10-DVS MLP at the sensor's native width
                (32768 -> 1000 -> 500 -> 200 -> 100 -> 10, seeded random
                weights, 50 % magnitude-pruned, 8-bit, Accel_2) through
@@ -16,7 +19,14 @@ Phases, one line each:
                against the port's CPU path and its packed-operand route;
                then one engine call of the largest bucket broken down by
                stage (host clock) and by device kernel (profiler)
-  4. nmnist4   the N-MNIST MLP at 4 bits on Accel_1 through the packed
+  4. stream    the same packed model behind the always-on StreamServer
+               (serve_snn's serve_async, virtual clock, a bursty arrival
+               trace of rate-map requests, per-bucket service times
+               measured on the card): every served request equal to the
+               closed-list run, no new engine shapes on the counted pass,
+               at most one input buffer per bucket, a noisy device
+               instance reproducible, and the flight recorder's spans
+  5. nmnist4   the N-MNIST MLP at 4 bits on Accel_1 through the packed
                kernel, bit-exact against the numpy oracle ``run``
 
 then the card's name and power limit, one JSON line of kernel results, and
@@ -39,6 +49,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_REQUESTS = 8
+N_STREAM = 32                # requests of the stream phase's arrival trace
 LENGTHS = (8, 25)            # request lengths are drawn from this range
 GAINS = (1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)
 MIN_RATE = 0.02              # least spike rate the gain must give each layer
@@ -98,13 +109,19 @@ def pick_gain(ws, x: torch.Tensor, lif) -> float:
     raise SystemExit(f"FAILED: no gain in {GAINS} makes every layer fire")
 
 
-def make_requests(rng, cfg, n: int) -> list[np.ndarray]:
+def rate_map_streams(rng, cfg, lengths) -> list[np.ndarray]:
+    """Requests of the given lengths drawn from the dataset's class rate
+    maps, class ``i % num_classes`` for request ``i``."""
     from repro_torch.data.events import _class_rate_maps
     maps = _class_rate_maps(cfg).reshape(cfg.num_classes, -1)
-    lengths = rng.integers(LENGTHS[0], LENGTHS[1] + 1, n)
-    return [(rng.random((t, cfg.n_in), dtype=np.float32)
+    return [(rng.random((int(t), cfg.n_in), dtype=np.float32)
              < maps[i % cfg.num_classes]).astype(np.float32)
             for i, t in enumerate(lengths)]
+
+
+def make_requests(rng, cfg, n: int) -> list[np.ndarray]:
+    return rate_map_streams(rng, cfg,
+                            rng.integers(LENGTHS[0], LENGTHS[1] + 1, n))
 
 
 def padded(streams, plan, n_in: int, device) -> torch.Tensor:
@@ -198,12 +215,8 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
              bound=(lif_bytes, 4 * c3.numel()), library_ms=None),
     ]
     for row in rows:
-        nbytes, nops = row.pop("bound")
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOP_PER_S * 1e3
         row.update(route="cuda", max_abs_err=err[row["name"]],
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+                   **bound(*row.pop("bound")))
         log("kernel", name=row["name"], ms=round(row["ms"], 4),
             plain_ms=round(row["plain_ms"], 4),
             bound_ms=round(row["bound_ms"], 4), bound_by=row["bound_by"],
@@ -212,6 +225,190 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
             shape=f"events[{r},{ev.shape[1]}]x{dl.n_src}x{n_dest}",
             valid_events=n_valid)
     return rows
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_c2c(w1: np.ndarray, x: torch.Tensor) -> dict:
+    """c2c_matmul against its plain version on the card at two shapes: the
+    reference benchmark's (256, 1024, 1024), and the model's input layer as
+    a dense MAC — the largest bucket's raster ``x`` as ``[B*T, 32768]``
+    times the int8 ``quantize_symmetric`` codes of layer 1's weights ``w1``
+    padded to 1024 columns.  Returns the kernels-line row, at the second.
+
+    Tolerance, elementwise: ``2 (K + 1) 2**-24 (|x| @ |w_q|) |scale|``,
+    twice the float32 rounding bound of a K-term sum taken in any order
+    plus the rounding of the scale — the kernel splits K and sums in
+    another order than the plain matmul, so bit-equality is not promised;
+    at the benchmark shape also the reference's ``rtol 1e-4, atol 1e-3``.
+    With 0/1 spikes and integer codes every partial sum is an integer below
+    2**24, exact in any order, so there the two agree bit for bit."""
+    from repro_torch.core.quant import quantize_symmetric
+    from repro_torch.kernels import c2c_matmul as c2c
+    from repro_torch.kernels import ops
+
+    dev = x.device
+    rng = np.random.default_rng(SEED + 4)
+    xb = torch.from_numpy(rng.standard_normal((256, 1024), dtype=np.float32))
+    wb = torch.from_numpy(rng.integers(-128, 128, (1024, 1024))
+                          .astype(np.int8))
+    qt = quantize_symmetric(w1, bits=8)
+    n_pad = -(-w1.shape[1] // 1024) * 1024
+    wq = np.zeros((w1.shape[0], n_pad), dtype=np.int8)
+    wq[:, :w1.shape[1]] = qt.q
+    cases = {"bench": (xb.to(dev), wb.to(dev), 0.01),
+             "cifar_l1": (x.reshape(-1, x.shape[-1]).contiguous(),
+                          torch.from_numpy(wq).to(dev), float(qt.scale))}
+    row = None
+    for label, (xc, wc, scale) in cases.items():
+        m, k = xc.shape
+        n = wc.shape[1]
+        got = ops.c2c_matmul(xc, wc, scale)
+        plain = c2c.c2c_matmul_plain(xc, wc, scale)
+        torch.cuda.synchronize()
+        err = (got - plain).abs()
+        tol = (2 * (k + 1) * 2.0 ** -24) * (xc.abs() @ wc.float().abs()) \
+            * abs(scale)
+        require(bool((err <= tol).all()), f"c2c_matmul {label} within the "
+                f"summation bound (max err {err.max().item()})")
+        if label == "bench":
+            torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        r = dict(name="c2c_matmul", route="cuda",
+                 source="src/repro_torch/kernels/csrc/c2c_matmul.cu",
+                 replaces="src/repro/kernels/c2c_matmul.py:42",
+                 on_path="standalone (no path of the JAX package runs it)",
+                 max_abs_err=err.max().item(),
+                 ms=cuda_ms(lambda: ops.c2c_matmul(xc, wc, scale), reps=20),
+                 plain_ms=cuda_ms(lambda: c2c.c2c_matmul_plain(xc, wc, scale),
+                                  reps=20),
+                 library_ms=cuda_ms(lambda: xc @ (wc.float() * scale),
+                                    reps=20),
+                 **bound(4 * m * k + k * n + 4 * m * n, 2 * m * k * n))
+        log("kernel", name="c2c_matmul", shape=f"{label}:{m}x{k}x{n}",
+            ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 4),
+            bound_ms=round(r["bound_ms"], 4), bound_by=r["bound_by"],
+            library_ms=round(r["library_ms"], 4),
+            max_abs_err=r["max_abs_err"], max_tol=tol.max().item())
+        row = r
+    return row
+
+
+def service_model(policy, telemetry) -> dict:
+    """Each bucket's service seconds from measured engine calls: the mean
+    of the bucket's calls, or for a bucket with none the mean seconds per
+    padded (B, T) cell times B*T."""
+    per_bucket: dict = {}
+    for rec in telemetry:
+        per_bucket.setdefault((rec["b_pad"], rec["t_pad"]), []).append(
+            rec["seconds"])
+    per_cell = (sum(r["seconds"] for r in telemetry)
+                / sum(r["b_pad"] * r["t_pad"] for r in telemetry))
+    return {(b, t): (float(np.mean(per_bucket[(b, t)]))
+                     if (b, t) in per_bucket else per_cell * b * t)
+            for b in policy.batch_sizes for t in policy.time_steps}
+
+
+def phase_stream(dense, streams_of, policy, calib) -> dict:
+    """The always-on path: serve_async (StreamServer, virtual clock) over a
+    bursty arrival trace whose streams are CIFAR10-DVS rate-map requests,
+    on the already packed model; every check raises on failure.
+
+    Service times: a first warm pass runs on ``calib``, the serve phase's
+    engine calls; those include the host accounting that serving with
+    ``with_stats=False`` skips, so the counted pass runs on the per-bucket
+    engine seconds that first pass measured (a second warm pass on them
+    first, so the counted pass meets no bucket it has not seen)."""
+    from repro_torch.core.noise import AnalogNoise
+    from repro_torch.engine import (FlightRecorder, StreamServer,
+                                    VirtualClock, run_bucketed, serve_trace)
+    from repro_torch.engine.chaos import synth_arrival_trace
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve_snn import serve_async
+
+    # arrival times, lengths and deadlines of the bursty process; the
+    # streams are swapped for rate-map requests of the same lengths
+    base = synth_arrival_trace(N_STREAM, 1, mode="bursty", t_lo=LENGTHS[0],
+                               t_hi=LENGTHS[1], seed=SEED)
+    streams = streams_of([s.shape[0] for _, s, _ in base])
+    trace = [(t, s, d) for (t, _, d), s in zip(base, streams)]
+    first = service_model(policy, calib)
+    warm = StreamServer(dense, policy=policy, clock=VirtualClock(),
+                        service_model=lambda b, t: first[(b, t)])
+    serve_trace(warm, trace)                              # warm, measures
+    service = service_model(policy, warm.telemetry)
+    kw = dict(policy=policy, service_model=lambda b, t: service[(b, t)],
+              with_stats=False)
+    serve_async(dense, trace, **kw)                       # warm
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results, rids, m = serve_async(dense, trace, **kw)    # counted
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(counts["event_synapse"] > 0 and counts["lif_update"] > 0,
+            f"stream launches {counts}")
+    require(m["completed"] + m["rejected"] + m["shed"] == len(trace),
+            f"stream conserves requests: {m['completed']} completed, "
+            f"{m['rejected']} rejected, {m['shed']} shed of {len(trace)}")
+    require(m["new_traces"] == 0, f"counted stream pass met "
+            f"{m['new_traces']} new engine shapes")
+    n_buffers = len(dense.input_buffers)
+    require(0 < n_buffers <= policy.n_buckets,
+            f"{n_buffers} input buffers for {policy.n_buckets} buckets")
+    closed = run_bucketed(dense, streams, policy=policy, with_stats=False)
+    served = [i for i, r in enumerate(rids) if r is not None]
+    require(all(np.array_equal(results[rids[i]].out_spikes,
+                               closed[i].out_spikes) for i in served),
+            "stream results equal the closed-list run")
+
+    noise = AnalogNoise(weight_sigma=0.05)
+    noisy = [serve_async(dense, trace, noise=noise, noise_key=0, **kw)
+             for _ in range(2)]
+    require(noisy[0][1] == noisy[1][1]
+            and all(np.array_equal(noisy[0][0][r].out_spikes,
+                                   noisy[1][0][r].out_spikes)
+                    for r in noisy[0][0]),
+            "AnalogNoise(0.05) seed 0 served twice gives identical spikes")
+    pred = {r: int(res.out_spikes.sum(0).argmax())
+            for r, res in results.items()}
+    agree = float(np.mean([int(noisy[0][0][r].out_spikes.sum(0).argmax())
+                           == pred[r] for r in pred]))
+
+    rec = FlightRecorder()
+    serve_async(dense, trace, tracer=rec, **kw)
+    rec.detach_jit_probe()
+    last = rec.last()
+    kinds = [sp.kind for sp in last.spans] if last is not None else []
+    require(all(k in kinds for k in ("pad", "dispatch", "slice")),
+            f"traced request spans {kinds}")
+
+    return dict(requests=len(trace), completed=m["completed"],
+                rejected=m["rejected"] + m["shed"],
+                dispatches=m["dispatches"],
+                forced_dispatches=m["forced_dispatches"],
+                fill=round(m["bucket_fill_ratio"], 4),
+                p50_latency_s=m["p50_latency_s"],
+                p99_latency_s=m["p99_latency_s"],
+                deadline_miss_rate=round(m["deadline_miss_rate"], 4),
+                wall_s=round(m["wall_s"], 4),
+                requests_per_s=round(m["completed"] / m["wall_s"], 2),
+                noise_agreement=agree,
+                noise_probes=noisy[0][2]["noise_probes"],
+                noise_probe_agreement=round(noisy[0][2]["noise_agreement"],
+                                            4),
+                input_buffers=n_buffers, n_buckets=policy.n_buckets,
+                launches=json.dumps(counts),
+                service_ms=json.dumps({f"{b}x{t}": round(v * 1e3, 3)
+                                       for (b, t), v in service.items()}),
+                closed_equal=True, new_shapes=0, noise_repeatable=True,
+                spans=",".join(dict.fromkeys(kinds)))
 
 
 def phase_breakdown(packed, streams, plan) -> dict:
@@ -269,7 +466,7 @@ def same_result(a, b) -> bool:
                     for x, y in zip(a.stats, b.stats) for f in fields))
 
 
-def drive(packed, streams, policy):
+def drive(packed, streams, policy, telemetry=None):
     """One counted run of the main path: the counts go to 0 just before it
     and are read just after."""
     from repro_torch.engine import run_bucketed
@@ -277,7 +474,7 @@ def drive(packed, streams, policy):
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
-    res = run_bucketed(packed, streams, policy=policy)
+    res = run_bucketed(packed, streams, policy=policy, telemetry=telemetry)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return res, dict(_build.launches), seconds
@@ -343,10 +540,12 @@ def main() -> int:
 
     # 2. kernels against their plain versions, at the main path's shapes
     kernels = phase_kernels(dense, packed, x_big)
+    kernels.append(phase_c2c(ws[0], x_big))
 
     # 3. serve: warm once, then the counted run of the dense route
     drive(dense, streams, policy)
-    res, counts, seconds = drive(dense, streams, policy)
+    telemetry = []
+    res, counts, seconds = drive(dense, streams, policy, telemetry)
     require(all(counts[k] > 0 for k in ("event_synapse", "lif_update")),
             f"dense route launches {counts}")
     n_layers = len(mapped.layers)
@@ -377,7 +576,13 @@ def main() -> int:
         cpu_equal=True, packed_equal=True)
     log("breakdown", **phase_breakdown(dense, streams, big))
 
-    # 4. the N-MNIST MLP at 4 bits, packed kernel, against the oracle
+    # 4. stream: the always-on server in front of the same packed model
+    rng_s = np.random.default_rng(SEED + 5)
+    log("stream", **phase_stream(
+        dense, lambda lengths: rate_map_streams(rng_s, CIFAR_DATA, lengths),
+        policy, telemetry))
+
+    # 5. the N-MNIST MLP at 4 bits, packed kernel, against the oracle
     rng4 = np.random.default_rng(SEED + 2)
     streams4 = make_requests(rng4, NMNIST_DATA, 2)
     both = BatchPlan(indices=(0, 1), b_pad=2,
@@ -405,9 +610,9 @@ def main() -> int:
         row["launches"] = (counts_pk if row["name"] == "event_synapse_packed"
                            else counts)[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path")
     print(card)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,11 +11,19 @@ The port never imports the reference.  What crosses over is plain numpy:
     :func:`mapped_from_reference` rebuilds a port :class:`MappedModel`
     from such a dict: quantized weights, mappings, every control-memory
     array and the compression pointers, bit for bit.
+  * :func:`packed_with_tiles` puts effective weight tiles made by the
+    reference — its replayed, possibly noise-perturbed ``[n_src,
+    n_dest_pad]`` layer tiles, as numpy — into a port
+    :class:`~repro_torch.engine.batched_run.PackedModel` of the same
+    shapes, so the port's engine can be run on the reference's weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from repro_torch.core.accelerator import MappedLayer, MappedModel, MappedRound
 from repro_torch.core.energy import AcceleratorSpec
@@ -156,3 +164,24 @@ def mapped_from_reference(arrays: dict[str, np.ndarray]) -> MappedModel:
             scale=_get(arrays, p + "scale", float)))
     return MappedModel(spec=spec, layers=layers, lif=lif,
                        weight_dict=weight_dict, compression=compression)
+
+
+def packed_with_tiles(packed, tiles: list[np.ndarray]):
+    """A copy of ``packed`` whose layers' f32 weight tiles are ``tiles``
+    (one ``[n_src, n_dest_pad]`` array per layer), on the model's device;
+    the host geometry and dispatch statistics are shared."""
+    if len(tiles) != len(packed.layers):
+        raise ValueError(f"{len(tiles)} tiles for {len(packed.layers)} "
+                         f"layers")
+    layers = []
+    for li, (layer, tile) in enumerate(zip(packed.layers, tiles)):
+        tile = np.asarray(tile, dtype=np.float32)
+        if layer.w_fused is None:
+            raise ValueError(f"layer {li} is on the packed-operand route; "
+                             f"repack with packed_ops=False")
+        if tile.shape != tuple(layer.w_fused.shape):
+            raise ValueError(f"layer {li}: tile {tile.shape} for weights "
+                             f"{tuple(layer.w_fused.shape)}")
+        layers.append(dataclasses.replace(
+            layer, w_fused=torch.from_numpy(tile.copy()).to(packed.device)))
+    return dataclasses.replace(packed, layers=layers)

@@ -101,6 +101,32 @@ def pack_signmag(q: np.ndarray, bits: int) -> np.ndarray:
     return packed.view(np.int8)
 
 
+def c2c_ladder_value(q_row, bits: int = 8):
+    """Ideal C2C-ladder output fraction for a digital word (paper eq. (2)).
+
+    A ``bits``-wide sign-magnitude word carries 1 polarity bit and
+    ``bits-1`` magnitude bits W_{n-2}..W_0, so the ladder sums over the
+    magnitude lanes only:
+        frac = sum_{i=0}^{n-2} W_i * 2^{i-(n-1)} = magnitude / 2^{bits-1}
+    (the sign flips V_ref polarity).  Full-scale codes ``+-qmax`` reach
+    ``(2^{bits-1}-1)/2^{bits-1}``; a magnitude bit at or above ``bits-1``
+    (the code ``-128`` at 8 bits) is outside the ladder and reads as 0.
+    Returns float32 fractions in (-1, 1), such that ``V_out = V_ref *
+    frac`` with ``V_ref = scale * 2^{bits-1}``.  Takes a numpy array or a
+    torch tensor and returns the same kind."""
+    import torch
+    is_np = not isinstance(q_row, torch.Tensor)
+    q = torch.as_tensor(np.asarray(q_row)) if is_np else q_row
+    n_mag = bits - 1
+    sign = torch.where(q < 0, -1.0, 1.0).to(torch.float32)
+    mag = q.to(torch.int32).abs()
+    lane_w = 2.0 ** (torch.arange(n_mag, dtype=torch.float32) - n_mag)
+    bit_vals = torch.stack([(mag >> i) & 1 for i in range(n_mag)],
+                           dim=-1).to(torch.float32)
+    frac = sign * (bit_vals @ lane_w.to(q.device))
+    return frac.numpy() if is_np else frac
+
+
 def unpack_signmag(packed, bits: int):
     """Inverse of :func:`pack_signmag`: ``int8[..., m]`` packed lanes back to
     integer codes ``[..., m * 8 / bits]`` (int32).  Takes a numpy array or a

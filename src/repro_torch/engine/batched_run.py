@@ -17,6 +17,11 @@ content — as batched tensor code on one device:
     accumulation runs through the ``event_synapse`` kernel, and LIF over T
     is one ``lif_scan`` launch.  On the CPU each kernel is its plain
     PyTorch version.
+  * ``donate`` is the port's counterpart of the reference's buffer
+    donation: each ``(B, T)`` shape a model serves keeps one preallocated
+    device input buffer, refilled with ``copy_`` on every call, so a
+    serving loop over a bucket grid holds at most ``n_buckets`` input
+    buffers instead of allocating one per call.
 
 Equivalence contract (tested): output spikes are **bit-identical** to the
 oracle's for every batch element, and the reported :class:`DispatchStats`
@@ -36,7 +41,6 @@ Data layout:
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -107,6 +111,10 @@ class PackedModel:
     spec: AcceleratorSpec | None = None
     block_d: int = DEFAULT_BLOCK_D
     device: torch.device = torch.device("cpu")
+    # one reusable input buffer per (B, T) shape served with donate on;
+    # not an init field, so dataclasses.replace starts a model afresh
+    input_buffers: dict = dataclasses.field(default_factory=dict,
+                                            init=False, repr=False)
 
     @property
     def n_in(self) -> int:
@@ -212,27 +220,80 @@ def pack_model(model: MappedModel, block_d: int = DEFAULT_BLOCK_D,
                        block_d=block_d, device=device)
 
 
-# The first call of each (model, B, T, max_events) — where the reference's
-# jit would trace and compile — is counted, so a serving front end can show
-# that its bucket grid bounds the distinct shapes the engine sees.
+# The first call of each (model signature, B, T, max_events) — where the
+# reference's jit would trace and compile — is counted, so a serving front
+# end can show that its bucket grid bounds the distinct shapes the engine
+# sees.  The signature is what the reference's jit cache keys on: the
+# layer shapes, operand route, LIF constants and device, not the weights,
+# so a same-shape hot-swap or noisy twin adds no new shapes.
 _trace_count = 0
-_seen_shapes: "weakref.WeakKeyDictionary[PackedModel, set]" = \
-    weakref.WeakKeyDictionary()
+_seen_shapes: set = set()
+_trace_listeners: list = []
 
 
 def trace_count() -> int:
-    """How many distinct ``(model, B, T, max_events)`` calls the engine has
-    seen — the shape-cache probe used by tests and the serving layer."""
+    """How many distinct ``(model signature, B, T, max_events)`` calls the
+    engine has seen — the shape-cache probe used by tests and the serving
+    layer."""
     return _trace_count
 
 
+def add_trace_listener(fn) -> None:
+    """Subscribe ``fn(kind, donated)`` to new-shape events — called once per
+    shape the engine has not seen (kind ``"batched"``).  The flight
+    recorder's jit probe binds here; a listener that raises is ignored."""
+    if fn not in _trace_listeners:
+        _trace_listeners.append(fn)
+
+
+def remove_trace_listener(fn) -> None:
+    if fn in _trace_listeners:
+        _trace_listeners.remove(fn)
+
+
+def _signature(packed: PackedModel) -> tuple:
+    return (str(packed.device), dataclasses.astuple(packed.lif),
+            tuple((l.n_src, l.n_dest_pad, l.bits, l.w_packed is not None)
+                  for l in packed.layers))
+
+
 def _note_shape(packed: PackedModel, b: int, t: int,
-                max_events: int | None) -> None:
+                max_events: int | None, donated: bool = False) -> None:
     global _trace_count
-    seen = _seen_shapes.setdefault(packed, set())
-    if (b, t, max_events) not in seen:
-        seen.add((b, t, max_events))
-        _trace_count += 1
+    key = (_signature(packed), b, t, max_events)
+    if key in _seen_shapes:
+        return
+    _seen_shapes.add(key)
+    _trace_count += 1
+    for fn in list(_trace_listeners):
+        try:
+            fn("batched", donated)
+        except Exception:
+            pass
+
+
+def should_donate(donate: bool | None, device="cuda") -> bool:
+    """Resolve a ``donate`` tri-state for a model on ``device``: ``None``
+    means on for a CUDA model and off on the CPU, as the reference's
+    default is on off the CPU backend."""
+    if donate is not None:
+        return bool(donate)
+    return torch.device(device).type == "cuda"
+
+
+def _upload(packed: PackedModel, host: np.ndarray,
+            donate: bool) -> torch.Tensor:
+    """The input raster on the model's device: with ``donate`` on, copied
+    into the model's buffer for this ``(B, T)`` shape, made on first use;
+    else a new tensor."""
+    src = torch.from_numpy(host)
+    if not donate:
+        return src.to(packed.device)
+    buf = packed.input_buffers.get(host.shape[:2])
+    if buf is None:
+        buf = packed.input_buffers[host.shape[:2]] = torch.empty(
+            host.shape, dtype=torch.float32, device=packed.device)
+    return buf.copy_(src)
 
 
 def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
@@ -381,6 +442,7 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
                 max_events: int | None = None,
                 sn_capacity_rows: int | None = None,
                 with_stats: bool = True,
+                donate: bool | None = None,
                 device=None) -> BatchedRunResult:
     """Execute a batch of spike trains ``[B, T, n_in]`` through the chain.
 
@@ -397,7 +459,10 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
 
     Degenerate shapes are valid inputs: ``B=0`` returns an empty result,
     ``T=1`` and all-silent batches follow the ordinary path.
-    ``with_stats=False`` skips the host-side accounting.
+    ``with_stats=False`` skips the host-side accounting.  ``donate``
+    refills the model's buffer for this ``(B, T)`` shape instead of
+    allocating a new input tensor (default: on for a CUDA model, off on
+    the CPU; see :func:`should_donate`).
     """
     if isinstance(model, PackedModel):
         packed = model
@@ -410,8 +475,9 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     if host.ndim != 3 or host.shape[2] != packed.n_in:
         raise ValueError(f"expected [B, T, {packed.n_in}], got {host.shape}")
     b, t, _ = host.shape
-    _note_shape(packed, b, t, max_events)
-    spikes = torch.from_numpy(host).to(packed.device)
+    donate = should_donate(donate, packed.device)
+    _note_shape(packed, b, t, max_events, donate)
+    spikes = _upload(packed, host, donate)
     layer_outs = [o.cpu().numpy() for o in
                   _forward_impl(packed, spikes, max_events)]
     return _finalize(packed, host, layer_outs, max_events, sn_capacity_rows,

@@ -216,7 +216,9 @@ def _slice_request(res: "br.BatchedRunResult", row: int, t: int,
 
 # The per-engine-call telemetry record schema, the reference's tuple.
 # ``seq`` is a monotonic per-producer dispatch ordinal and ``ts`` the
-# producer's clock at dispatch; ``seconds`` is wall-measured engine time.
+# producer's clock at dispatch (the StreamServer passes its pluggable
+# clock's now, so VirtualClock replays stamp deterministic timestamps);
+# ``seconds`` is wall-measured engine time.
 TELEMETRY_KEYS = ("seq", "ts", "b_pad", "t_pad", "n_requests", "events",
                   "out_spikes", "seconds")
 
@@ -225,29 +227,46 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
                  max_events: int | None = None,
                  sn_capacity_rows: int | None = None,
                  with_stats: bool = True,
-                 seq: int = 0) -> tuple[list[RequestResult], dict]:
+                 donate: bool | None = None,
+                 seq: int = 0, ts: float | None = None,
+                 now=None, span_log: list | None = None
+                 ) -> tuple[list[RequestResult], dict]:
     """One engine call: zero-pad ``plan``'s requests into the plan's
     ``(b_pad, t_pad)`` bucket, run on the packed model's device, and slice
     each request's bit-exact result back out.
 
+    The single execution path shared by :func:`run_bucketed` and the
+    always-on :class:`~repro_torch.engine.stream_server.StreamServer`.
     Returns the per-request results (aligned with ``plan.indices``) and one
-    ``TELEMETRY_KEYS`` record, stamped with ``seq`` and the monotonic
-    clock; ``seconds`` ends after the results are back on the host, so it
-    covers the device work.
+    ``TELEMETRY_KEYS`` record; ``seconds`` ends after the results are back
+    on the host, so it covers the device work.  ``donate`` refills the
+    bucket's input buffer (see :func:`~repro_torch.engine.batched_run
+    .run_batched`).
+
+    ``seq``/``ts`` stamp the record.  ``span_log``, if a list, receives
+    ``(kind, t0, t1, attrs)`` tuples for the ``pad`` and ``slice`` stages
+    measured on ``now`` (the caller's clock; defaults to
+    ``time.monotonic``).  Under a VirtualClock these are zero-width point
+    events, so traces stay replay-deterministic.
     """
-    ts = time.monotonic()
+    clock = time.monotonic if now is None else now
+    if span_log is not None:
+        t_pad0 = clock()
     padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in),
                       dtype=np.float32)
     for row, i in enumerate(plan.indices):
         padded[row, :streams[i].shape[0]] = streams[i]
+    if span_log is not None:
+        span_log.append(("pad", t_pad0, clock(),
+                         {"b_pad": plan.b_pad, "t_pad": plan.t_pad}))
     t0 = time.perf_counter()
     res = br.run_batched(packed, padded, max_events=max_events,
                          sn_capacity_rows=sn_capacity_rows,
-                         with_stats=with_stats)
+                         with_stats=with_stats, donate=donate)
     dt = time.perf_counter() - t0
     record = {
         "seq": int(seq),
-        "ts": ts,
+        "ts": float(time.monotonic() if ts is None else ts),
         "b_pad": plan.b_pad, "t_pad": plan.t_pad,
         "n_requests": len(plan.indices),
         "events": int(sum((streams[i] > 0).sum() for i in plan.indices)),
@@ -255,8 +274,13 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
             res.out_spikes[row, :streams[i].shape[0]].sum()
             for row, i in enumerate(plan.indices))),
         "seconds": dt}
+    if span_log is not None:
+        t_sl0 = clock()
     results = [_slice_request(res, row, streams[i].shape[0], with_stats)
                for row, i in enumerate(plan.indices)]
+    if span_log is not None:
+        span_log.append(("slice", t_sl0, clock(),
+                         {"n_requests": len(plan.indices)}))
     return results, record
 
 
@@ -266,6 +290,8 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
                  with_stats: bool = True,
                  telemetry: list | None = None,
                  overlong: str = "error",
+                 donate: bool | None = None,
+                 noise=None, noise_key=0,
                  device=None) -> list[RequestResult]:
     """Serve a list of variable-length spike streams (``[T_i, n_in]`` each)
     through the bucketed engine; results come back in request order.
@@ -283,6 +309,13 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
     raises :class:`OverlongRequestError` naming every offending request;
     ``"extend"`` grows the grid geometrically (new shapes, logged) so the
     rest of the batch is unaffected.
+
+    ``noise`` (an :class:`repro_torch.core.noise.AnalogNoise`) serves the
+    batch through one deterministic noisy device instance:
+    :func:`repro_torch.core.noise.perturb_packed` applies the C2C-ladder
+    gain error to the effective weights under ``noise_key`` (an int seed
+    or a ``torch.Generator``) before any dispatch.  The same ``(noise,
+    noise_key)`` is bit-reproducible, on the card and on the CPU alike.
     """
     if overlong not in ("error", "extend"):
         raise ValueError(f"overlong must be 'error' or 'extend', "
@@ -294,6 +327,9 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
                              f"not {device}")
     else:
         packed = model.pack(device="cuda" if device is None else device)
+    if noise is not None:
+        from repro_torch.core.noise import as_noise_key, perturb_packed
+        packed = perturb_packed(as_noise_key(noise_key), packed, noise)
     streams = [np.asarray(s, dtype=np.float32) for s in streams]
     for i, s in enumerate(streams):
         if s.ndim != 2 or s.shape[1] != packed.n_in or s.shape[0] == 0:
@@ -318,7 +354,8 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
         reqs, record = execute_plan(packed, streams, plan,
                                     max_events=max_events,
                                     sn_capacity_rows=sn_capacity_rows,
-                                    with_stats=with_stats, seq=seq)
+                                    with_stats=with_stats, donate=donate,
+                                    seq=seq)
         if telemetry is not None:
             telemetry.append(record)
         for row, i in enumerate(plan.indices):

@@ -39,7 +39,7 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("event_synapse", "lif_update")
+SOURCES = ("event_synapse", "lif_update", "c2c_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,10 +54,14 @@ SIGNATURES = {
     "lif_update": {
         "lif_scan_f32": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
     },
+    "c2c_matmul": {
+        "c2c_matmul_f32_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 # Launches per kernel, bumped by each wrapper where it launches its kernel.
-launches = {"event_synapse": 0, "event_synapse_packed": 0, "lif_update": 0}
+launches = {"event_synapse": 0, "event_synapse_packed": 0, "lif_update": 0,
+            "c2c_matmul": 0}
 
 # nvcc's report per source (registers, shared memory, spills from -Xptxas -v)
 build_log: dict[str, str] = {}

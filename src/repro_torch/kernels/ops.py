@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.quant import check_bits
+from repro_torch.kernels import c2c_matmul as _c2c
 from repro_torch.kernels import event_synapse as _es
 from repro_torch.kernels import lif_update as _lif
 from repro_torch.kernels import ref  # noqa: F401  (re-exported for convenience)
@@ -58,5 +59,13 @@ def lif_scan(currents: torch.Tensor, lif: LIFParams) -> torch.Tensor:
     return _lif.lif_scan_plain(currents, lif)
 
 
+def c2c_matmul(x: torch.Tensor, w_q: torch.Tensor, scale) -> torch.Tensor:
+    """The ideal C2C-ladder MAC: x f32 [M, K], w_q int8 [K, N], scale f32
+    scalar -> ``(x @ w_q) * scale`` f32 [M, N]."""
+    if _on_cuda(x):
+        return _c2c.c2c_matmul_cuda(x, w_q, scale)
+    return _c2c.c2c_matmul_plain(x, w_q, scale)
+
+
 __all__ = ["event_synapse", "event_synapse_packed", "lif_update", "lif_scan",
-           "events_from_spikes", "overflow_count", "ref"]
+           "c2c_matmul", "events_from_spikes", "overflow_count", "ref"]

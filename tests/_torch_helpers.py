@@ -126,3 +126,131 @@ def assert_batched_equals_oracle(res, oracle_results, n_layers, ctx=""):
         e = res.sample_energy(b)
         assert e.total_ops == oracle.energy.total_ops, c
         assert e.tops_per_w == oracle.energy.tops_per_w, c
+
+
+# ------------------------------------------------- serving-fabric twins
+
+def demo_models(kind: str = "mlp", seed: int = 0):
+    """``(reference packed model, port packed model)`` of the serve_snn
+    smoke demo: the reference on its packed-operand route (the route its
+    Pallas kernels run on this JAX), the port on the CPU."""
+    from repro.launch.serve_snn import build_demo_model as ref_build
+
+    from repro_torch.launch.serve_snn import build_demo_model as port_build
+    return (ref_build(kind, smoke=True, seed=seed).pack(packed_ops=True),
+            port_build(kind, smoke=True, seed=seed).pack(device="cpu"))
+
+
+def policies(batch_sizes, time_steps):
+    """The same bucket grid as ``(reference policy, port policy)``."""
+    from repro.engine import BucketPolicy as RefPolicy
+
+    from repro_torch.engine import BucketPolicy
+    return (RefPolicy(batch_sizes=tuple(batch_sizes),
+                      time_steps=tuple(time_steps)),
+            BucketPolicy(batch_sizes=tuple(batch_sizes),
+                         time_steps=tuple(time_steps)))
+
+
+def dispatches(server):
+    """A server's dispatch sequence: every telemetry field but the
+    wall-measured ``seconds``."""
+    return [{k: v for k, v in rec.items() if k != "seconds"}
+            for rec in server.telemetry]
+
+
+def rejections(server):
+    return [(r.rid, r.reason, r.detail, r.at, r.model)
+            for r in server.rejections]
+
+
+def assert_results_equal(got, want, ctx=""):
+    """Two RequestResults (port, reference), every surface bit for bit."""
+    np.testing.assert_array_equal(got.out_spikes, np.asarray(want.out_spikes),
+                                  err_msg=f"{ctx} spikes")
+    assert len(got.stats) == len(want.stats), ctx
+    for li, (a, b) in enumerate(zip(got.stats, want.stats)):
+        assert_stats_equal(a, b, f"{ctx} layer {li}")
+        np.testing.assert_array_equal(got.util[li], want.util[li])
+        np.testing.assert_array_equal(got.overflow[li], want.overflow[li])
+    if got.stats:
+        assert vars(got.energy()) == vars(want.energy()), ctx
+
+
+class Twin:
+    """The reference's StreamServer (packed route) and the port's, built
+    with the same arguments on their own VirtualClocks and driven in
+    lockstep: every call goes to both, and :meth:`check` holds their
+    dispatch sequences, rejections, metrics snapshots and served results
+    equal.  ``ref_model``/``port_model`` are models or registries;
+    ``policy`` is ``(batch_sizes, time_steps)``."""
+
+    def __init__(self, ref_model, port_model, *, policy=None, **kw):
+        from repro.engine import StreamServer as RefServer
+        from repro.engine import VirtualClock as RefClock
+
+        from repro_torch.engine import StreamServer, VirtualClock
+        ref_kw, port_kw = dict(kw), dict(kw)
+        if policy is not None:
+            ref_kw["policy"], port_kw["policy"] = policies(*policy)
+        self.ref = RefServer(ref_model, clock=RefClock(), **ref_kw)
+        self.port = StreamServer(port_model, clock=VirtualClock(), **port_kw)
+        self.done_ref: dict = {}
+        self.done_port: dict = {}
+
+    def _both(self, name, *args, **kw):
+        a = getattr(self.ref, name)(*args, **kw)
+        b = getattr(self.port, name)(*args, **kw)
+        return a, b
+
+    def submit(self, stream, **kw):
+        a, b = self._both("submit", stream, **kw)
+        assert a == b, f"rids differ: reference {a}, port {b}"
+        return b
+
+    def advance(self, dt):
+        self.ref.clock.advance(dt)
+        self.port.clock.advance(dt)
+
+    def _collecting(self, name, *args, **kw):
+        a, b = self._both(name, *args, **kw)
+        assert [r for r, _ in a] == [r for r, _ in b], name
+        self.done_ref.update(a)
+        self.done_port.update(b)
+        return b
+
+    def poll(self):
+        return self._collecting("poll")
+
+    def flush(self, *args, **kw):
+        return self._collecting("flush", *args, **kw)
+
+    def collect(self):
+        return self._collecting("collect")
+
+    def serve_trace(self, trace, **kw):
+        from repro.engine import serve_trace as ref_serve_trace
+
+        from repro_torch.engine import serve_trace
+        ref_res, ref_rids = ref_serve_trace(self.ref, trace, **kw)
+        res, rids = serve_trace(self.port, trace, **kw)
+        assert rids == ref_rids
+        self.done_ref.update(ref_res)
+        self.done_port.update(res)
+        return res, rids
+
+    def check(self, *, wall_keys=()):
+        """Everything the two servers report, equal: dispatches, telemetry
+        record fields (wall ``seconds`` aside), rejections, every
+        ``snapshot()`` key but the named wall-clock ones, and every served
+        result bit for bit."""
+        assert dispatches(self.port) == dispatches(self.ref)
+        assert rejections(self.port) == rejections(self.ref)
+        a, b = self.port.metrics.snapshot(), self.ref.metrics.snapshot()
+        assert tuple(a) == tuple(b)
+        for k in a:
+            if k not in wall_keys:
+                assert a[k] == b[k], f"metric {k}: port {a[k]} vs {b[k]}"
+        assert self.done_port.keys() == self.done_ref.keys()
+        for rid, res in self.done_port.items():
+            assert_results_equal(res, self.done_ref[rid], f"rid {rid}")

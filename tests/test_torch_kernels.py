@@ -231,3 +231,83 @@ def test_core_lif_rollout_matches_reference():
         vn = np.float32(0.85) * vn + cur[t]
         vn = np.where(vn >= np.float32(0.7), np.float32(0.1), vn)
         np.testing.assert_array_equal(v[t].numpy(), vn)
+
+
+# ---------------------------------------------------------------- c2c_matmul
+
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", [
+    (128, 256, 384, 128, 128, 128),
+    (64, 128, 128, 64, 64, 128),
+    (256, 512, 256, 128, 256, 128),
+])
+def test_c2c_matmul_matches_reference_kernel(m, k, n, bm, bk, bn):
+    """The port's c2c_matmul (its plain version on the CPU) against the
+    reference's Pallas kernel in interpret mode, at the reference suite's
+    shapes and tolerance."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    out = ops.c2c_matmul(_t(x), _t(wq), 0.02)
+    want = ref_ops.c2c_matmul(jnp.asarray(x), jnp.asarray(wq),
+                              jnp.float32(0.02), bm=bm, bk=bk, bn=bn)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(
+        ref.c2c_matmul_ref(_t(x), _t(wq), 0.02).numpy(),
+        np.asarray(ref_ref.c2c_matmul_ref(jnp.asarray(x), jnp.asarray(wq),
+                                          jnp.float32(0.02))),
+        rtol=1e-4, atol=1e-3)
+
+
+def test_c2c_matmul_equals_ideal_ladder():
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(64, 128)).astype(np.float32)
+    wq = rng.integers(-127, 128, size=(128, 128)).astype(np.int8)
+    out = ops.c2c_matmul(_t(x), _t(wq), 0.013)
+    ladder = ref.c2c_matmul_ladder_ref(_t(x), _t(wq), 0.013)
+    np.testing.assert_allclose(out.numpy(), ladder.numpy(), rtol=1e-4,
+                               atol=1e-3)
+    want = ref_ref.c2c_matmul_ladder_ref(jnp.asarray(x), jnp.asarray(wq),
+                                         jnp.float32(0.013))
+    np.testing.assert_allclose(ladder.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_c2c_matmul_int8_extremes():
+    x = torch.ones(8, 128)
+    wq = torch.full((128, 128), -128, dtype=torch.int8)
+    out = ops.c2c_matmul(x, wq, 1.0)
+    np.testing.assert_allclose(out.numpy(), (x @ wq.float()).numpy(),
+                               rtol=1e-5)
+    want = ref_ops.c2c_matmul(jnp.ones((8, 128), jnp.float32),
+                              jnp.full((128, 128), -128, jnp.int8),
+                              jnp.float32(1.0), bm=8)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_c2c_ladder_value_bit_exact(bits):
+    """Every code of the width, and -128 at 8 bits (outside the ladder:
+    it reads as -0.0), bit for bit with the reference."""
+    from repro.core.quant import c2c_ladder_value as ref_ladder
+
+    from repro_torch.core.quant import c2c_ladder_value
+    lo = -128 if bits == 8 else -(2 ** (bits - 1) - 1)
+    q = np.arange(lo, 2 ** (bits - 1)).astype(np.int8)
+    want = np.asarray(ref_ladder(jnp.asarray(q), bits=bits))
+    for got in (c2c_ladder_value(q, bits=bits),
+                c2c_ladder_value(_t(q), bits=bits).numpy()):
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def test_c2c_names_and_launcher_refuse_cpu():
+    from repro_torch.kernels import c2c_matmul as c2c
+    assert ref.c2c_matmul_plain is c2c.c2c_matmul_plain
+    with pytest.raises(ValueError, match="CUDA"):
+        c2c.c2c_matmul_cuda(torch.zeros(2, 3),
+                            torch.zeros(3, 4, dtype=torch.int8), 1.0)
+    splits, chunk = c2c._splits(128, 32768, 1024, 132)
+    assert splits * chunk >= 32768 > (splits - 1) * chunk
+    assert chunk % c2c.BK == 0 and c2c._splits(64, 100, 64, 132)[0] == 1
