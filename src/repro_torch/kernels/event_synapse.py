@@ -11,7 +11,10 @@ Contract of an event list ``events[R, E]`` (int32): each row holds source
 indices in ascending order, then ``-1`` padding — the layout
 :func:`events_from_spikes` writes.  A row's sum stops at its first ``-1``;
 padding only ever adds ``+0.0``, so for a compacted list that equals the
-masked sum over every valid entry.
+masked sum over every valid entry.  The dense kernel also relies on the
+ascending order: it streams the weight tile through shared memory in
+ascending source chunks and adds each row's events chunk by chunk, which is
+list order only because the list is ascending.
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ def _stream() -> ctypes.c_void_p:
 
 def event_synapse_cuda(events: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
-    """Launch the dense kernel: events i32 [R, E], weights f32
+    """Launch the dense kernel: events i32 [R, E] (each row's valid sources
+    ascending, as :func:`events_from_spikes` writes them), weights f32
     [n_src, n_dest] on one CUDA device -> currents f32 [R, n_dest]."""
     _check_events(events)
     _check_weights(weights, events, torch.float32)

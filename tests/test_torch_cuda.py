@@ -55,14 +55,18 @@ def _pruned_mlp(rng, sizes, gain=1.5):
     return ws
 
 
-@pytest.mark.parametrize("n_src,n_dest,max_ev", [
-    (16, 128, 16), (700, 1000, 700), (2048, 1024, 300), (33, 7, 5),
-    (1500, 130, 1500),
+@pytest.mark.parametrize("n_rows,n_src,n_dest,max_ev", [
+    (37, 16, 128, 16), (37, 700, 1000, 700), (37, 2048, 1024, 300),
+    (37, 33, 7, 5), (37, 1500, 130, 1500),
+    (300, 1200, 1000, 1200),     # more rows than one block takes
+    (300, 513, 7, 100),          # and a truncated MEM_E depth
 ])
-def test_cuda_event_synapse_matches_plain(card, n_src, n_dest, max_ev):
+def test_cuda_event_synapse_matches_plain(card, n_rows, n_src, n_dest,
+                                          max_ev):
     rng = np.random.default_rng(n_src)
     w = _t(rng.normal(size=(n_src, n_dest)).astype(np.float32)).to(card)
-    spikes = _t((rng.random((37, n_src)) < 0.3).astype(np.float32)).to(card)
+    spikes = _t((rng.random((n_rows, n_src)) < 0.3)
+                .astype(np.float32)).to(card)
     spikes[5] = 0                       # a silent row
     ev = ops.events_from_spikes(spikes, max_ev)
     assert torch.equal(es.event_synapse_cuda(ev, w),
@@ -73,6 +77,73 @@ def test_cuda_event_synapse_matches_plain(card, n_src, n_dest, max_ev):
         assert torch.equal(
             es.event_synapse_packed_cuda(ev, pk, 0.013, bits),
             es.event_synapse_packed_plain(ev, pk, 0.013, bits))
+
+
+def _edge_spikes(pattern):
+    """[rows, n_src] rasters whose event lists sit where the dense kernel's
+    streaming can go wrong."""
+    if pattern == "chunk_boundaries":
+        # each row group of the kernel starts its chunks at its least first
+        # event; events sit on both sides of every multiple of 128 from
+        # there, and a row group with a gap makes the kernel skip chunks
+        n_src = 4200
+        sp = np.zeros((200, n_src), np.float32)
+        for lo, rows in ((0, range(0, 4)), (3, range(64, 70)),
+                         (1000, range(128, 133))):
+            edges = np.arange(lo + 127, n_src, 128)
+            for i, r in enumerate(rows):
+                sp[r, lo] = 1
+                sp[r, edges[i % 2::2]] = 1
+                sp[r, np.minimum(edges[i % 2::2] + 1, n_src - 1)] = 1
+        sp[130, 1500:3300] = 0          # the gap
+        return sp
+    if pattern == "one_full_row":
+        sp = np.zeros((9, 5000), np.float32)
+        sp[3] = 1                       # every source, beside silent rows
+        sp[7, ::97] = 1
+        return sp
+    if pattern == "first_and_last_source":
+        sp = np.zeros((70, 777), np.float32)
+        sp[::3, 0] = 1
+        sp[1::2, 776] = 1
+        return sp
+    raise ValueError(pattern)
+
+
+@pytest.mark.parametrize("pattern,n_dest", [
+    ("chunk_boundaries", 130), ("chunk_boundaries", 1000),
+    ("one_full_row", 200), ("first_and_last_source", 1000),
+    ("first_and_last_source", 7),
+])
+def test_cuda_event_synapse_edge_lists(card, pattern, n_dest):
+    """The dense kernel bit for bit on event lists that sit on chunk
+    boundaries, skip chunks, fill a whole row, or touch source 0 and the
+    last source."""
+    sp = _edge_spikes(pattern)
+    rng = np.random.default_rng(sp.shape[1])
+    w = _t(rng.normal(size=(sp.shape[1], n_dest)).astype(np.float32)).to(card)
+    ev = ops.events_from_spikes(_t(sp).to(card), sp.shape[1])
+    assert torch.equal(es.event_synapse_cuda(ev, w),
+                       es.event_synapse_plain(ev, w))
+
+
+def test_cuda_event_synapse_input_layer_rate_maps(card):
+    """The CIFAR10-DVS input layer at its real shape: events [128, 32768]
+    from the class rate maps (8 requests of 16 steps) into a seeded
+    [32768, 1024] tile, bit for bit."""
+    from repro_torch.configs.menage_paper import CIFAR_DATA
+    from repro_torch.data.events import _class_rate_maps
+    rng = np.random.default_rng(0)
+    maps = _class_rate_maps(CIFAR_DATA).reshape(CIFAR_DATA.num_classes, -1)
+    sp = (rng.random((8, 16, CIFAR_DATA.n_in), dtype=np.float32)
+          < maps[np.arange(8) % CIFAR_DATA.num_classes, None]).astype(
+              np.float32)
+    spikes = _t(sp.reshape(128, -1)).to(card)
+    w = _t(rng.normal(size=(CIFAR_DATA.n_in, 1024)).astype(np.float32)).to(card)
+    ev = ops.events_from_spikes(spikes, CIFAR_DATA.n_in)
+    assert ev.shape == (128, 32768)
+    assert torch.equal(es.event_synapse_cuda(ev, w),
+                       es.event_synapse_plain(ev, w))
 
 
 def test_cuda_event_synapse_rejects_what_it_cannot_take(card):

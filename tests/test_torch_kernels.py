@@ -93,6 +93,30 @@ def test_events_from_spikes_matches_reference(max_ev, p):
         np.asarray(ref_ops.overflow_count(jnp.asarray(spikes), max_ev)))
 
 
+@pytest.mark.parametrize("max_ev", [1, 7, 64, 299, 300, 1000])
+@pytest.mark.parametrize("seed", range(3))
+def test_events_from_spikes_rows_ascending_valid_prefix(seed, max_ev):
+    """The contract the dense CUDA kernel walks by: every row of the MEM_E
+    writer's output is a strictly ascending prefix of valid sources (the
+    row's first ``max_events`` spikes) followed only by -1, and equals the
+    reference's writer."""
+    rng = np.random.default_rng(seed)
+    p = rng.choice([0.01, 0.06, 0.3, 0.9], size=(8, 1))
+    spikes = (rng.random((8, 300)) < p).astype(np.float32)
+    spikes[2] = 0
+    spikes[5] = 1
+    ev = ops.events_from_spikes(_t(spikes), max_ev).numpy()
+    assert ev.shape == (8, min(max_ev, 300))
+    for row, sp in zip(ev, spikes):
+        n = int((row >= 0).sum())
+        assert (row[n:] == -1).all()
+        assert (np.diff(row[:n]) > 0).all()
+        np.testing.assert_array_equal(row[:n], np.flatnonzero(sp)[:max_ev])
+    np.testing.assert_array_equal(
+        ev, np.asarray(ref_ops.events_from_spikes(jnp.asarray(spikes),
+                                                  max_ev)))
+
+
 # ----------------------------------------------------- event_synapse_packed
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
