@@ -9,7 +9,8 @@ Phases, one line each:
   1. build     the CUDA kernels of src/repro_torch/kernels/csrc with nvcc
   2. kernels   every kernel of the serving path against its plain PyTorch
                version on the card, bit-exact, at the shapes the serving
-               run gives it, with times; and c2c_matmul, the int8-weight
+               run gives it, with times; the packed kernel also at 4 and 2
+               bits at the input layer's events; and c2c_matmul, the int8-weight
                C2C-ladder MAC that no serving path runs, at the reference
                benchmark's shape and as a dense input layer of the model
   3. serve     the paper's CIFAR10-DVS MLP at the sensor's native width
@@ -38,6 +39,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +57,7 @@ GAINS = (1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)
 MIN_RATE = 0.02              # least spike rate the gain must give each layer
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores, same sheet
+TF32_FLOP_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
 
 
 def log(phase: str, **fields) -> None:
@@ -206,7 +209,8 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
                  ev, pl.w_packed, pl.scale, bits=pl.bits)),
              plain_ms=cuda_ms(lambda: es.event_synapse_packed_plain(
                  ev, pl.w_packed, pl.scale, pl.bits), reps=2),
-             bound=(bytes_packed, 2 * flops), library_ms=None),
+             bound=(bytes_packed, 2 * flops),
+             library_ms=cuda_ms(lambda: torch.matmul(spikes, dl.w_fused))),
         dict(name="lif_update",
              source="src/repro_torch/kernels/csrc/lif_update.cu",
              replaces="src/repro/kernels/lif_update.py:32",
@@ -224,14 +228,80 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
             else round(row["library_ms"], 4),
             shape=f"events[{r},{ev.shape[1]}]x{dl.n_src}x{n_dest}",
             valid_events=n_valid)
+    packed_widths(ev, spikes, dl.n_src, n_dest, n_valid, n_rows_read)
     return rows
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def packed_widths(ev, spikes, n_src: int, n_dest: int, n_valid: int,
+                  n_rows_read: int) -> None:
+    """The packed kernel at the widths the packed route exists for, 4 and 2
+    bits, on the input layer's real events: seeded codes from pack_signmag,
+    bit-exact against the plain version, timed beside the library call on
+    the same dequantised tile (made outside the timed window)."""
+    from repro_torch.core.quant import pack_signmag, unpack_signmag
+    from repro_torch.kernels import event_synapse as es
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 6)
+    scale = 0.013
+    out_bytes = ev.shape[0] * n_dest * 4
+    for bits in (4, 2):
+        qmax = 2 ** (bits - 1) - 1
+        codes = rng.integers(-qmax, qmax + 1, (n_src, n_dest)).astype(np.int8)
+        pk = torch.from_numpy(pack_signmag(codes, bits)).to(ev.device)
+        got = ops.event_synapse_packed(ev, pk, scale, bits=bits)
+        require(torch.equal(got, es.event_synapse_packed_plain(
+            ev, pk, scale, bits)), f"event_synapse_packed at {bits} bits")
+        tile = unpack_signmag(pk, bits).to(torch.float32) * scale
+        b = bound(n_valid * 4 + n_rows_read * n_dest * bits // 8 + out_bytes,
+                  2 * n_valid * n_dest)
+        log("kernel", name="event_synapse_packed", bits=bits,
+            ms=round(cuda_ms(lambda: ops.event_synapse_packed(
+                ev, pk, scale, bits=bits)), 4),
+            bound_ms=round(b["bound_ms"], 4), bound_by=b["bound_by"],
+            library_ms=round(cuda_ms(lambda: torch.matmul(spikes, tile)), 4),
+            shape=f"events[{ev.shape[0]},{ev.shape[1]}]x{n_src}x{n_dest}",
+            max_abs_err=0.0)
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<arg,...>`` of a mangled kernel symbol whose template
+    arguments are integers, e.g. ``stream_kernel<8,32,32,256,4,512>``
+    (enclosing namespaces dropped)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    if name is None:
+        return mangled
+    if mangled[pos:pos + 1] == "I":
+        args = re.findall(r"Li(-?\d+)E", mangled[pos:].split("EE")[0] + "E")
+        name += "<" + ",".join(args) + ">"
+    return name
+
+
+def ptxas_registers(log_text: str) -> dict:
+    """Registers per kernel from nvcc's ``-Xptxas -v`` report."""
+    regs, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "Used " in ln and name:
+            regs[name] = ln.split("Used ")[1].split(",")[0]
+            name = None
+    return regs
+
+
+def bound(nbytes: float, nops: float, flop_per_s: float = F32_FLOP_PER_S
+          ) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the float32 rate."""
+    memory rate and the operations over the rate of their type (float32
+    outside the tensor cores unless another is named)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOP_PER_S * 1e3
+    t_ops = nops / flop_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -291,7 +361,11 @@ def phase_c2c(w1: np.ndarray, x: torch.Tensor) -> dict:
                                   reps=20),
                  library_ms=cuda_ms(lambda: xc @ (wc.float() * scale),
                                     reps=20),
-                 **bound(4 * m * k + k * n + 4 * m * n, 2 * m * k * n))
+                 # the least time of this product on the card, whatever
+                 # computes it: the tensor cores at the TF32 rate, with the
+                 # two MMAs a multiply-add that float32 accuracy needs
+                 **bound(4 * m * k + k * n + 4 * m * n, 4 * m * k * n,
+                         TF32_FLOP_PER_S))
         log("kernel", name="c2c_matmul", shape=f"{label}:{m}x{k}x{n}",
             ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 4),
             bound_ms=round(r["bound_ms"], 4), bound_by=r["bound_by"],
@@ -505,8 +579,7 @@ def main() -> int:
 
     # 1. build
     build_s = _build.build_all()
-    regs = {name: [ln.split("Used ")[1].split(",")[0]
-                   for ln in text.splitlines() if "Used " in ln]
+    regs = {name: ptxas_registers(text)
             for name, text in _build.build_log.items()}
     log("build", seconds=round(build_s, 2), torch=torch.__version__,
         cuda=torch.version.cuda, ptxas=json.dumps(regs))

@@ -3,9 +3,11 @@ version.
 
 ``out = (x @ float(w_q)) * scale`` — x f32 ``[M, K]``, w_q int8 ``[K, N]``
 (every code, -128 included), scale an f32 scalar — the paper's eq. (2)
-ladder evaluated as a matmul.  :func:`c2c_matmul_cuda` launches the tiled
-SIMT kernel of ``csrc/c2c_matmul.cu``; :func:`c2c_matmul_plain` is the same
-function in PyTorch, what the CPU runs and what the kernel is held to.
+ladder evaluated as a matmul.  :func:`c2c_matmul_cuda` launches the kernel
+of ``csrc/c2c_matmul.cu`` (the tensor cores in TF32, x split into two TF32
+terms, so the product keeps float32 accuracy; the source argues the
+bound); :func:`c2c_matmul_plain` is the same function in PyTorch, what the
+CPU runs and what the kernel is held to.
 
 The reference's ``bm/bk/bn`` are TPU VMEM tiling knobs and are not taken:
 the kernel tiles itself and guards ragged edges.  No path of the engine
@@ -22,9 +24,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-BK = 16               # the kernel's K step: a split of K is a multiple of it
-TILE = 64             # the kernel's square output tile
-MIN_SPLIT_K = 512     # the least K extent worth a block of its own
+BK = 32               # the kernel's K step: a split of K is a multiple of it
+TILE = 128            # the kernel's square output tile
+MIN_SPLIT_K = 128     # the least K extent worth a block of its own
 
 
 def _scale_value(scale) -> float:
@@ -39,10 +41,11 @@ def c2c_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
 
 
 def _splits(m: int, k: int, n: int, n_sm: int) -> tuple[int, int]:
-    """``(splits, k_chunk)``: split K over enough blocks to give the card
-    about two blocks per SM, keeping each split at least MIN_SPLIT_K deep."""
+    """``(splits, k_chunk)``: split K over as many blocks as fit the card in
+    one wave (the kernel's shared memory allows one block per SM), keeping
+    each split at least MIN_SPLIT_K deep."""
     tiles = -(-m // TILE) * -(-n // TILE)
-    want = max(1, min(-(-2 * n_sm // tiles), k // MIN_SPLIT_K))
+    want = max(1, min(n_sm // tiles, k // MIN_SPLIT_K))
     k_chunk = -(-k // want)
     k_chunk = -(-k_chunk // BK) * BK
     return -(-k // k_chunk), k_chunk

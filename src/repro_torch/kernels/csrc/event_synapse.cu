@@ -6,25 +6,33 @@
 //
 //   out[r, d] = sum over the events e of row r, in ascending e, of W[ev[r, e], d]
 //
+// with W the f32 tile, or for packed codes W[s, d] = fl32(q[s, d] * scale).
+//
 // Contract of the event lists.  Each row holds its valid sources first, in
 // ascending order, then -1 padding (the layout events_from_spikes writes).
 // A row's sum stops at its first -1: padding only ever adds +0.0, so the
-// early stop is exact.  The dense route relies on the ascending order too:
-// it walks the sources in ascending chunks, and adds a row's events in list
+// early stop is exact.  The kernel relies on the ascending order too: it
+// walks the sources in ascending chunks, and adds a row's events in list
 // order only because that order is ascending.
 //
-// Dense route: stream the tile, walk the events against it.  A block owns
-// kCols destination columns of up to kRows event rows; one thread owns one
-// row and kVec = 4 adjacent columns (one float4).  The block streams the
-// weight rows W[s0 : s0 + kSrc, d0 : d0 + kCols] of ascending source chunks
-// through a ring of kStages shared-memory stages, one 2-D TMA box per
-// chunk (cp.async where the tile's rows are not 16-byte aligned), kStages
-// - 1 chunks in flight while one is read.  For each staged chunk every
-// thread adds, in list order, ring[ev - s0] for each of its row's events
-// below s0 + kSrc.  So each weight row crosses from memory to the SM once
-// per row group, not once per event, and the grid puts the row groups of
-// one column slice on consecutive blocks, which read the same chunks at
-// about the same time through L2.
+// One streaming kernel serves both routes, templated on the stage element:
+// f32 weights (kBits = 32) or sign-magnitude codes of kBits in {2, 4, 8}
+// (quant.pack_signmag: column j of a row at bit offset j * kBits of the
+// row's bytes).  A block owns kCols destination columns of up to kRows
+// event rows; one thread owns one row and kVec = 4 adjacent columns (one
+// float4).  The block streams the weight
+// rows W[s0 : s0 + kSrc, d0 : d0 + kCols] of ascending source chunks (their
+// bytes, kCols * kBits / 8 a row) through a ring of kStages shared-memory
+// stages, as 2-D TMA boxes of up to 256 rows (cp.async, or byte loads,
+// where the tile's rows are not 16-byte aligned), kStages - 1 chunks in
+// flight while one is read.  For each staged chunk every thread adds, in
+// list order, f32 row ev - s0 of the chunk (the ring slot itself, or for
+// codes the chunk's dequantised buffer, below) for each of its row's
+// events below s0 + kSrc.
+// So each weight row crosses from memory to the SM once per row group, not
+// once per event, and the grid puts the row groups of one column slice on
+// consecutive blocks, which read the same chunks at about the same time
+// through L2.
 //
 // The rows' event lists are copied into per-row rings of kEv slots with
 // cp.async, refilled after every chunk to kEv - 3 positions past the row's
@@ -39,35 +47,39 @@
 // staged next starts at max(end of the last chunk, least next event of the
 // block's rows one chunk ago): chunks in which no row has an event are
 // skipped.  One block barrier a chunk: it both releases the stage the next
-// copy overwrites and publishes the rows' next events.  Ring rows are kCols
-// floats apart, not padded: the rows a quarter-warp reads are random
-// sources, and at a stride of kCols two rows either fall on the same banks
-// or on disjoint ones, while a padded stride makes partial overlaps that
-// conflict more often.  Shared memory is addressed through 32-bit
-// shared-window offsets, so the hot loops do no generic-to-shared address
-// conversion.
+// copy overwrites and publishes the rows' next events.  Ring rows are
+// packed back to back, not padded: the rows a warp reads are random
+// sources, and at a stride of a power of two two rows either fall on the
+// same banks or on disjoint ones, while a padded stride makes partial
+// overlaps that conflict more often.  Shared memory is addressed through
+// 32-bit shared-window offsets, so the hot loops do no generic-to-shared
+// address conversion.
 //
-// Packed route: one block per (row block, dest tile), kRows x kCols
-// threads, one thread per (row, column).  The rows' event lists are staged
-// in shared memory kChunk events at a time; every thread of a row walks the
-// same list, dequantising the code of each event's weight row as it loads
-// it.  Staging records where each row's first -1 falls, so the event loop
-// has a known length and is unrolled.
+// Packed codes cross memory and land in the ring as codes; once a chunk
+// has landed, the block dequantises it once, a chunk ahead of the walk,
+// into one of two f32 buffers, which the rows then walk as the f32 route
+// walks its ring.  (Dequantising in registers at every event cost about
+// three times the walk's instructions per event and made the kernel
+// issue-bound, slower than a per-event gather; PERF.md.)  A code's
+// magnitude m and sign bit go into the float +-(2^23 + m), from which
+// +-2^23 is subtracted, exactly, giving q = +-m (and +0 for the code "-0",
+// as the plain version's q = 0), then __fmul_rn(q, scale): the plain
+// version's fl32(q * scale) bit for bit, with no integer-to-float
+// conversion, which runs well below the float add rate on sm_90.
 //
-// Both routes keep one float32 sum per (r, d) in one thread and add in
-// event order with __fadd_rn (packed codes: __fmul_rn for the
-// dequantisation): no split-K, no atomics, no tensor cores and no fused
+// One float32 sum per (r, d) in one thread, events added in order with
+// __fadd_rn: no split-K, no atomics, no tensor cores and no fused
 // multiply-add, so the result equals the sequential float32 sum of the
 // numpy oracle bit for bit.
 //
 // Bound.  Memory: each distinct weight row an event reads, once, plus the
 // events and the output.  At the CIFAR10-DVS input layer the fused tile is
-// 32768 x 1024 f32 (134 MB), larger than the 50 MB L2; the dense route
-// reads it about once per launch, where a per-event gather read 1.03 GB.
-// In the SM the dense route is bound by the busiest row of each block: its
-// events are one sequential chain of float4 loads and adds, and the chunk
-// barrier makes the block wait for that row.  Packed codes cut the bytes
-// per row to n_dest*bits/8.
+// 32768 x 1024 f32 (134 MB), larger than the 50 MB L2; the kernel reads it
+// about once per launch, where a per-event gather read 1.03 GB.  Packed
+// codes cut the bytes per row to n_dest * bits / 8.  In the SM the kernel
+// is bound by the busiest row of each block: its events are one sequential
+// chain of loads and adds, and the chunk barrier makes the block wait for
+// that row.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
                    // looked up at run time, so nothing links libcuda
@@ -77,19 +89,38 @@
 
 namespace {
 
-// ------------------------------------------------------------ dense route
-
-constexpr int kVec = 4;     // columns per thread: one float4
+constexpr int kVec = 4;     // columns per thread: one float4, or 4 codes
 constexpr int kProbes = 8;  // probes per lane per step of the prefix search
+constexpr int kBoxRows = 256;  // most rows of one TMA box
 
-// The dense route's shape, chosen on the H100 at the CIFAR10-DVS input
-// layer (PERF.md): columns per block, event rows per block, sources per
-// chunk, ring stages, event slots per row.
-constexpr int kDenseCols = 32;
-constexpr int kDenseRows = 32;
-constexpr int kDenseSrc = 256;
-constexpr int kDenseStages = 4;
-constexpr int kDenseEv = 512;
+// The kernel's shape per stage element (kBits = 32: f32 weights), chosen
+// on the H100 at the CIFAR10-DVS input layer (PERF.md): columns per block,
+// event rows per block, sources per chunk, ring stages, event slots per
+// row.  A ring row is kCols * kBits / 8 bytes, a multiple of 16 (TMA's
+// least box width), so 2-bit codes take 64 columns; codes add two f32
+// chunk buffers to the shared memory.
+template <int kBits>
+struct Shape;
+template <>
+struct Shape<32> {
+  static constexpr int kCols = 32, kRows = 32, kSrc = 256, kStages = 4,
+                       kEv = 512;
+};
+template <>
+struct Shape<8> {
+  static constexpr int kCols = 32, kRows = 32, kSrc = 256, kStages = 4,
+                       kEv = 512;
+};
+template <>
+struct Shape<4> {
+  static constexpr int kCols = 32, kRows = 32, kSrc = 256, kStages = 4,
+                       kEv = 512;
+};
+template <>
+struct Shape<2> {
+  static constexpr int kCols = 64, kRows = 16, kSrc = 256, kStages = 4,
+                       kEv = 512;
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -155,6 +186,49 @@ __device__ __forceinline__ void lds8_f32x4_if(float4 (&v)[8],
         "r"(a[6]), "r"(a[7]), "r"(take[0]), "r"(take[1]), "r"(take[2]),
         "r"(take[3]), "r"(take[4]), "r"(take[5]), "r"(take[6]),
         "r"(take[7]));
+}
+
+// The kBytes-wide word at addr, zero-extended.
+template <int kBytes>
+__device__ __forceinline__ unsigned lds_word(unsigned addr) {
+  static_assert(kBytes == 1 || kBytes == 2 || kBytes == 4, "word size");
+  unsigned v;
+  if constexpr (kBytes == 4) {
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  } else if constexpr (kBytes == 2) {
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  } else {
+    asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  }
+  return v;
+}
+
+__device__ __forceinline__ void sts_f32x4(unsigned addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w));
+}
+
+// The 4 sign-magnitude codes of kBits in w (code j at bit j * kBits) as
+// fl32(q * scale), q = m - 2 * sign * m: +-(2^23 + m) - +-2^23 is exactly
+// +-m (+0 for m = 0 whatever the sign), then one rounded multiply.
+template <int kBits>
+__device__ __forceinline__ float4 dequant4(unsigned w, float scale) {
+  constexpr unsigned kMag = (1u << (kBits - 1)) - 1u;
+  constexpr unsigned kTwo23 = 0x4B000000u;  // the float 2^23
+  float q[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const unsigned c = w >> (j * kBits);
+    const unsigned sign = (c << (32 - kBits)) & 0x80000000u;
+    q[j] = __fsub_rn(__uint_as_float(kTwo23 | sign | (c & kMag)),
+                     __uint_as_float(kTwo23 | sign));
+  }
+  return make_float4(__fmul_rn(q[0], scale), __fmul_rn(q[1], scale),
+                     __fmul_rn(q[2], scale), __fmul_rn(q[3], scale));
+}
+
+__device__ __forceinline__ void st_shared_u8(unsigned addr, unsigned v) {
+  asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
@@ -242,22 +316,39 @@ __device__ int valid_prefix(const int32_t* __restrict__ row, int n,
   return lo;
 }
 
-// kEv: event slots per row in shared memory.
-template <int kCols, int kRows, int kSrc, int kStages, int kEv>
+// kBits: 32 for f32 weights, else the width of a packed code.  kEv: event
+// slots per row in shared memory.
+template <int kBits, int kCols, int kRows, int kSrc, int kStages, int kEv>
 __global__ void __launch_bounds__(kRows * kCols / kVec, 1)
-dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
-             const int32_t* __restrict__ events, long long ev_ld,
-             const float* __restrict__ w, long long w_ld, bool w_vec,
-             float* __restrict__ out, int n_rows, int n_events, int n_dest) {
+stream_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
+              const int32_t* __restrict__ events, long long ev_ld,
+              const uint8_t* __restrict__ w, long long w_ld, bool w_vec,
+              float scale, float* __restrict__ out, int n_rows,
+              int n_events, int n_dest) {
   constexpr int kLanes = kCols / kVec;
   constexpr int kThreads = kRows * kLanes;
   constexpr int kWarps = kThreads / 32;
   constexpr int kGran = 8;  // events a thread takes per step
-  constexpr unsigned kStageBytes = kSrc * kCols * 4;
+  constexpr bool kCodes = kBits < 32;          // packed codes, not f32
+  constexpr int kRowBytes = kCols * kBits / 8;  // one ring row
+  constexpr int kWord = kVec * kBits / 8;       // one thread's share of it
+  constexpr unsigned kStageBytes = kSrc * kRowBytes;
+  // codes: each chunk dequantised once into one of two f32 buffers
+  constexpr unsigned kBufBytes = kCodes ? kSrc * kCols * 4 : 0;
+  // commit groups that may still be in flight at the top of iteration i:
+  // f32 walks chunk i from the ring; codes convert chunk i + 1 there
+  constexpr int kLag = kCodes ? kStages - 3 : kStages - 2;
+  constexpr int kBox = kSrc < kBoxRows ? kSrc : kBoxRows;  // rows a box
+  static_assert(kBits == 32 || kBits == 8 || kBits == 4 || kBits == 2,
+                "stage element");
   static_assert(kCols % kVec == 0 && 32 % kLanes == 0 && kThreads % 32 == 0,
                 "a row's lanes must sit in one warp");
+  static_assert(kRowBytes % 16 == 0 && kRowBytes <= 256,
+                "a ring row must be a TMA box width");
+  static_assert(kSrc % kBox == 0, "a chunk must be whole TMA boxes");
   static_assert((kEv & (kEv - 1)) == 0, "kEv must be a power of two");
   static_assert(kEv >= 64, "too few event slots");
+  static_assert(kLag >= 0, "too few ring stages");
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t w_landed[kStages];  // TMA chunk j: phase j / kStages
   __shared__ int chunk_start[kStages];
@@ -269,14 +360,17 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
   const long long r = (long long)blockIdx.x * kRows + tid / kLanes;
   const int d0 = blockIdx.y * kCols;
   const int d = d0 + lane * kVec;
+  const int b0 = d0 * kBits / 8;              // the block's first byte of a row
+  const int row_bytes = n_dest * kBits / 8;   // the bytes of a tile row
   const bool active = r < n_rows;
   const int32_t* row = events + (active ? r : 0) * ev_ld;
-  // [kStages][kSrc][kCols] weight chunks, then [kRows][kEv] event slots:
-  // position p of a row lives in slot (p + skew) % kEv, so that the row's
-  // 16-byte granules in memory land on 16-byte slots.
+  // [kStages][kSrc][kRowBytes] weight chunks, then (codes) [2][kSrc][kCols]
+  // f32 chunks, then [kRows][kEv] event slots: position p of a row lives in
+  // slot (p + skew) % kEv, so that the row's 16-byte granules in memory
+  // land on 16-byte slots.
   const unsigned ring = smem_u32(smem);
-  const unsigned ev_slots =
-      ring + kStages * kStageBytes + (tid / kLanes) * (kEv * 4);
+  const unsigned bufs = ring + kStages * kStageBytes;
+  const unsigned ev_slots = bufs + 2 * kBufBytes + (tid / kLanes) * (kEv * 4);
   const int skew = (int)((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
 
   // The block's source range: its rows' least first and greatest event.
@@ -310,36 +404,41 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
     issued = end;
   };
 
-  // Stage W[start : min(start + kSrc, hi + 1), d0 : d0 + kCols] into slot:
-  // one TMA box while the whole box lies below hi (so inside the tile),
-  // else cp.async.
+  // Stage the bytes of W[start : min(start + kSrc, hi + 1), d0 : d0 + kCols]
+  // into slot: whole TMA boxes while a box lies below hi (so inside the
+  // tile), the rest by the threads, cp.async in 16-byte granules where the
+  // rows are 16-byte aligned, else in 4-byte words (f32) or bytes.  Bytes
+  // past the tile's row are zeros, or never read for a stored column.
   auto stage = [&](int slot, int start) {
     const unsigned dst = ring + slot * kStageBytes;
     const int n = min(kSrc, hi - start + 1);
-    if (w_tma && n == kSrc) {
-      if (tid == 0) {
-        chunk_start[slot] = start;
-        mbar_arrive_tx(smem_u32(&w_landed[slot]), kStageBytes);
-        tma_load_2d(dst, &w_map, d0, start, smem_u32(&w_landed[slot]));
-      }
-      return;
+    const int boxed = w_tma ? n / kBox * kBox : 0;
+    if (w_tma && tid == 0) {
+      const unsigned bar = smem_u32(&w_landed[slot]);
+      mbar_arrive_tx(bar, boxed * kRowBytes);
+      for (int s = 0; s < boxed; s += kBox)
+        tma_load_2d(dst + s * kRowBytes, &w_map, b0, start + s, bar);
     }
-    if (w_tma && tid == 0) mbar_arrive_tx(smem_u32(&w_landed[slot]), 0);
+    const uint8_t* src = w + (long long)start * w_ld;
     if (w_vec) {
-      for (int i = tid; i < n * kLanes; i += kThreads) {
-        const int s = i / kLanes, c = (i % kLanes) * kVec;
-        const int left = n_dest - (d0 + c);
-        const int bytes = left >= kVec ? 16 : max(left, 0) * 4;
-        cp_async16(dst + (s * kCols + c) * 4,
-                   w + (long long)(start + s) * w_ld + (bytes ? d0 + c : 0),
-                   bytes);
+      constexpr int kG = kRowBytes / 16;
+      for (int i = boxed * kG + tid; i < n * kG; i += kThreads) {
+        const int s = i / kG, c = (i % kG) * 16;
+        const int bytes = min(max(row_bytes - (b0 + c), 0), 16);
+        cp_async16(dst + s * kRowBytes + c,
+                   src + s * w_ld + (bytes ? b0 + c : 0), bytes);
       }
-    } else {
+    } else if constexpr (kBits == 32) {
       for (int i = tid; i < n * kCols; i += kThreads) {
         const int s = i / kCols, c = i % kCols;
         if (d0 + c < n_dest)
-          cp_async4(dst + (s * kCols + c) * 4,
-                    w + (long long)(start + s) * w_ld + d0 + c);
+          cp_async4(dst + s * kRowBytes + c * 4, src + s * w_ld + b0 + c * 4);
+      }
+    } else {
+      for (int i = tid; i < n * kRowBytes; i += kThreads) {
+        const int s = i / kRowBytes, c = i % kRowBytes;
+        st_shared_u8(dst + i,
+                     b0 + c < row_bytes ? __ldg(src + s * w_ld + b0 + c) : 0u);
       }
     }
     if (tid == 0) chunk_start[slot] = start;
@@ -364,6 +463,34 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
 #pragma unroll
   for (int k = 0; k < kStages - 1; ++k) landed[k] = issued;
 
+  // Codes: chunk j's codes, once landed, dequantised into f32 buffer j % 2,
+  // every thread 4 columns of a row at a time.  Rows past the staged ones
+  // convert whatever the slot holds; no event reads them.
+  auto convert = [&](int j) {
+    if constexpr (kCodes) {
+      const int slot = j % kStages;
+      if (w_tma) mbar_wait(smem_u32(&w_landed[slot]), (j / kStages) & 1);
+      const unsigned src = ring + slot * kStageBytes;
+      const unsigned dst = bufs + (j & 1) * kBufBytes;
+      static_assert(kSrc * kLanes % kThreads == 0, "whole conversion rounds");
+#pragma unroll
+      for (int k = 0; k < kSrc * kLanes / kThreads; ++k) {
+        const int g = tid + k * kThreads;
+        const int s = g / kLanes, l = g % kLanes;
+        const unsigned w4 = lds_word<kWord>(src + s * kRowBytes + l * kWord);
+        sts_f32x4(dst + (s * kCols + l * kVec) * 4,
+                  dequant4<kBits>(w4, scale));
+      }
+    }
+  };
+  if constexpr (kCodes) {
+    if (staged > 0) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk 0's copies landed
+      convert(0);
+    }
+  }
+
   // The row's events at positions p0 .. p0 + kGran - 1: from its slots
   // below `ready`, from memory above it, INT_MAX past the row's end.
   auto load_events = [&](int (&ev)[kGran], int p0, int ready) {
@@ -386,8 +513,10 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   int cur = 0;  // this row's next unconsumed event
   for (int i = 0; i < staged; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk i landed; every thread is done with chunk i - 1
+    cp_async_wait<kLag>();
+    // f32: chunk i landed; codes: chunk i converted, chunk i + 1 landed.
+    // Every thread is done with chunk i - 1.
+    __syncthreads();
 
     // Stage chunk i + kStages - 1 into the slot chunk i - 1 used.  The
     // least next event of the block's rows after chunk i - 1 bounds every
@@ -407,10 +536,17 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
     }
 
     const int slot = i % kStages;
-    if (w_tma) mbar_wait(smem_u32(&w_landed[slot]), (i / kStages) & 1);
+    unsigned tile;  // the f32 rows of chunk i, at this thread's columns
+    if constexpr (kCodes) {
+      // chunk i + 1 into the buffer chunk i - 1 used, while this one walks
+      if (i + 1 < staged) convert(i + 1);
+      tile = bufs + (i & 1) * kBufBytes + lane * (kVec * 4);
+    } else {
+      if (w_tma) mbar_wait(smem_u32(&w_landed[slot]), (i / kStages) & 1);
+      tile = ring + slot * kStageBytes + lane * (kVec * 4);
+    }
     const int s0 = chunk_start[slot];
     const int s_end = s0 + kSrc;
-    const unsigned tile = ring + slot * kStageBytes + lane * (kVec * 4);
     const int ready = landed[kStages - 2];  // slots below it hold the events
 
     // Every event of the row below s_end, in list order: the events below
@@ -426,9 +562,9 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
         int ev_next[kGran];
         const bool ahead = cur + 2 * kGran <= ready;
         if (ahead) load_events(ev_next, cur + kGran, ready);
-        float4 v[kGran];
         int take[kGran];
         unsigned at[kGran];
+        float4 v[kGran];
 #pragma unroll
         for (int j = 0; j < kGran; ++j) {
           v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -487,13 +623,14 @@ dense_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
   }
 }
 
-// A 2-D tensor map of the weight tile for TMA boxes of kSrc x kCols, or
-// false where the tile's rows are not 16-byte aligned or libcuda has no
-// cuTensorMapEncodeTiled.  The kernel is not told n_src, so the map claims
-// INT_MAX rows; the kernel loads a box only where all its rows lie at or
-// below a row some event reads.
-template <int kCols, int kSrc>
-bool weight_map(CUtensorMap* map, const void* w, long long w_ld, int n_dest) {
+// A 2-D tensor map of the tile's bytes for TMA boxes of kBox rows x
+// kRowBytes, or false where the tile's rows are not 16-byte aligned or
+// libcuda has no cuTensorMapEncodeTiled.  The kernel is not told n_src, so
+// the map claims INT_MAX rows; the kernel loads a box only where all its
+// rows lie at or below a row some event reads.
+template <int kRowBytes, int kBox>
+bool weight_map(CUtensorMap* map, const void* w, long long w_ld,
+                long long row_bytes) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -507,117 +644,53 @@ bool weight_map(CUtensorMap* map, const void* w, long long w_ld, int n_dest) {
       return false;
     encode = (Encode)fn;
   }
-  if (w_ld % 4 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)n_dest, (cuuint64_t)INT_MAX};
-  const cuuint64_t strides[1] = {(cuuint64_t)w_ld * 4};
-  const cuuint32_t box[2] = {kCols, kSrc};
+  if (w_ld % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)INT_MAX};
+  const cuuint64_t strides[1] = {(cuuint64_t)w_ld};
+  const cuuint32_t box[2] = {kRowBytes, kBox};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w),
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w),
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kCols, int kRows, int kSrc, int kStages, int kEv>
-int launch_dense(const void* events, long long ev_ld, const void* w,
-                 long long w_ld, void* out, int n_rows, int n_events,
-                 int n_dest, void* stream) {
+// w: the tile's bytes, row stride w_ld bytes; scale is read for codes only.
+template <int kBits, int kCols, int kRows, int kSrc, int kStages, int kEv>
+int launch_stream(const void* events, long long ev_ld, const void* w,
+                  long long w_ld, float scale, void* out, int n_rows,
+                  int n_events, int n_dest, void* stream) {
   constexpr int kThreads = kRows * kCols / kVec;
-  constexpr int kSmem =
-      (kStages * kSrc * kCols + kRows * kEv) * (int)sizeof(float);
-  auto kernel = dense_kernel<kCols, kRows, kSrc, kStages, kEv>;
+  constexpr int kRowBytes = kCols * kBits / 8;
+  constexpr int kSmem = kStages * kSrc * kRowBytes +
+                        (kBits < 32 ? 2 * kSrc * kCols * 4 : 0) +
+                        kRows * kEv * 4;
+  auto kernel = stream_kernel<kBits, kCols, kRows, kSrc, kStages, kEv>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   const bool w_vec =
-      w_ld % kVec == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+      w_ld % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   CUtensorMap map = {};
-  const bool w_tma = weight_map<kCols, kSrc>(&map, w, w_ld, n_dest);
+  const bool w_tma = weight_map<kRowBytes, (kSrc < kBoxRows ? kSrc : kBoxRows)>(
+      &map, w, w_ld, (long long)n_dest * kBits / 8);
   // row groups on x, so the blocks of one column slice run side by side
   const dim3 grid((n_rows + kRows - 1) / kRows, (n_dest + kCols - 1) / kCols);
   kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      map, w_tma, (const int32_t*)events, ev_ld, (const float*)w, w_ld, w_vec,
-      (float*)out, n_rows, n_events, n_dest);
+      map, w_tma, (const int32_t*)events, ev_ld, (const uint8_t*)w, w_ld,
+      w_vec, scale, (float*)out, n_rows, n_events, n_dest);
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------------- packed route
-
-constexpr int kRows = 4;     // event rows per block (threadIdx.y)
-constexpr int kCols = 128;   // destination columns per block (threadIdx.x)
-constexpr int kChunk = 512;  // events staged per row per pass
-
-// Sign-magnitude codes, 8/BITS destination lanes per byte, lane j of a row
-// in byte j / (8/BITS) at bit offset (j % (8/BITS)) * BITS.
-template <int BITS>
-struct PackedRows {
-  const int8_t* __restrict__ w;
-  long long ld;  // row stride of the packed tile, in bytes
-  float scale;
-  __device__ __forceinline__ float operator()(int src, int d) const {
-    constexpr int kLanes = 8 / BITS;
-    const unsigned byte = (unsigned)(uint8_t)w[(long long)src * ld + d / kLanes];
-    const unsigned word = (byte >> ((d % kLanes) * BITS)) & ((1u << BITS) - 1u);
-    const int mag = (int)(word & ((1u << (BITS - 1)) - 1u));
-    const int q = ((word >> (BITS - 1)) & 1u) ? -mag : mag;
-    return __fmul_rn((float)q, scale);
-  }
-};
-
-template <class Rows>
-__global__ void __launch_bounds__(kRows * kCols)
-event_synapse_kernel(const int32_t* __restrict__ events, long long ev_ld,
-                     Rows rows, float* __restrict__ out,
-                     int n_rows, int n_events, int n_dest) {
-  __shared__ int32_t ev_s[kRows][kChunk];
-  __shared__ int n_valid[kRows];  // position of the first -1 in the chunk
-  const int ty = threadIdx.y;
-  const int tid = ty * kCols + threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const long long r = row0 + ty;
-  const int d = blockIdx.y * kCols + threadIdx.x;
-
-  float acc = 0.0f;
-  bool done = r >= n_rows;
-  for (int base = 0; base < n_events; base += kChunk) {
-    const int len = min(kChunk, n_events - base);
-    if (tid < kRows) n_valid[tid] = len;
-    __syncthreads();
-    for (int i = tid; i < kRows * len; i += kRows * kCols) {
-      const int rr = i / len;
-      const int k = i % len;
-      const long long gr = row0 + rr;
-      const int32_t src = gr < n_rows ? events[gr * ev_ld + base + k] : -1;
-      ev_s[rr][k] = src;
-      if (src < 0) atomicMin(&n_valid[rr], k);
-    }
-    __syncthreads();
-    if (!done) {
-      const int n = n_valid[ty];
-      if (d < n_dest) {
-        // the loads of consecutive events are independent: unrolling keeps
-        // several weight rows in flight while the adds stay in event order
-#pragma unroll 8
-        for (int k = 0; k < n; ++k) acc = __fadd_rn(acc, rows(ev_s[ty][k], d));
-      }
-      done = n < len;
-    }
-    // also the barrier that keeps the next chunk from overwriting ev_s
-    // while another row of the block still reads it
-    if (!__syncthreads_or(!done)) break;
-  }
-  if (r < n_rows && d < n_dest) out[r * n_dest + d] = acc;
-}
-
-template <class Rows>
-int launch(const void* events, long long ev_ld, Rows rows, void* out,
-           int n_rows, int n_events, int n_dest, void* stream) {
-  const dim3 block(kCols, kRows);
-  const dim3 grid((n_rows + kRows - 1) / kRows, (n_dest + kCols - 1) / kCols);
-  event_synapse_kernel<Rows><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)events, ev_ld, rows, (float*)out, n_rows, n_events,
-      n_dest);
-  return (int)cudaGetLastError();
+// The kernel at the shape chosen for kBits.
+template <int kBits>
+int launch(const void* events, long long ev_ld, const void* w,
+           long long w_ld, float scale, void* out, int n_rows, int n_events,
+           int n_dest, void* stream) {
+  using S = Shape<kBits>;
+  return launch_stream<kBits, S::kCols, S::kRows, S::kSrc, S::kStages,
+                       S::kEv>(events, ev_ld, w, w_ld, scale, out, n_rows,
+                               n_events, n_dest, stream);
 }
 
 }  // namespace
@@ -630,9 +703,8 @@ extern "C" {
 int event_synapse_f32(const void* events, long long ev_ld, const void* w,
                       long long w_ld, void* out, int n_rows, int n_events,
                       int n_dest, void* stream) {
-  return launch_dense<kDenseCols, kDenseRows, kDenseSrc, kDenseStages,
-                      kDenseEv>(
-      events, ev_ld, w, w_ld, out, n_rows, n_events, n_dest, stream);
+  return launch<32>(events, ev_ld, w, w_ld * 4, 0.0f, out, n_rows, n_events,
+                    n_dest, stream);
 }
 
 // packed i8 [n_src, n_dest * bits / 8] (row stride w_ld bytes), bits in
@@ -641,17 +713,16 @@ int event_synapse_packed_i8(const void* events, long long ev_ld,
                             const void* packed, long long w_ld, float scale,
                             int bits, void* out, int n_rows, int n_events,
                             int n_dest, void* stream) {
-  const int8_t* w = (const int8_t*)packed;
   switch (bits) {
     case 2:
-      return launch(events, ev_ld, PackedRows<2>{w, w_ld, scale}, out,
-                    n_rows, n_events, n_dest, stream);
+      return launch<2>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+                       n_events, n_dest, stream);
     case 4:
-      return launch(events, ev_ld, PackedRows<4>{w, w_ld, scale}, out,
-                    n_rows, n_events, n_dest, stream);
+      return launch<4>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+                       n_events, n_dest, stream);
     case 8:
-      return launch(events, ev_ld, PackedRows<8>{w, w_ld, scale}, out,
-                    n_rows, n_events, n_dest, stream);
+      return launch<8>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+                       n_events, n_dest, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

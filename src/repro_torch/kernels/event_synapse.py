@@ -11,10 +11,11 @@ Contract of an event list ``events[R, E]`` (int32): each row holds source
 indices in ascending order, then ``-1`` padding — the layout
 :func:`events_from_spikes` writes.  A row's sum stops at its first ``-1``;
 padding only ever adds ``+0.0``, so for a compacted list that equals the
-masked sum over every valid entry.  The dense kernel also relies on the
-ascending order: it streams the weight tile through shared memory in
-ascending source chunks and adds each row's events chunk by chunk, which is
-list order only because the list is ascending.
+masked sum over every valid entry.  The kernel (one streaming kernel for
+f32 tiles and packed codes) also relies on the ascending order: it streams
+the weight tile through shared memory in ascending source chunks and adds
+each row's events chunk by chunk, which is list order only because the
+list is ascending.
 """
 
 from __future__ import annotations

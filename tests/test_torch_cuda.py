@@ -110,27 +110,46 @@ def _edge_spikes(pattern):
     raise ValueError(pattern)
 
 
+ROUTES = ("dense", "packed2", "packed4", "packed8")
+
+
+def _route_pair(route, rng, n_src, n_dest, device):
+    """(kernel, plain) closures of one event_synapse route over a seeded
+    tile: f32 normal weights, or random codes of the width packed with
+    pack_signmag (n_dest cut to a whole number of codes a byte)."""
+    if route == "dense":
+        w = _t(rng.normal(size=(n_src, n_dest)).astype(np.float32)).to(device)
+        return (lambda ev: es.event_synapse_cuda(ev, w),
+                lambda ev: es.event_synapse_plain(ev, w))
+    bits = int(route[len("packed"):])
+    nd = max(n_dest - n_dest % (8 // bits), 8 // bits)
+    pk = _t(pack_signmag(_codes(rng, n_src, nd, bits), bits)).to(device)
+    return (lambda ev: es.event_synapse_packed_cuda(ev, pk, 0.013, bits),
+            lambda ev: es.event_synapse_packed_plain(ev, pk, 0.013, bits))
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("pattern,n_dest", [
     ("chunk_boundaries", 130), ("chunk_boundaries", 1000),
     ("one_full_row", 200), ("first_and_last_source", 1000),
     ("first_and_last_source", 7),
 ])
-def test_cuda_event_synapse_edge_lists(card, pattern, n_dest):
-    """The dense kernel bit for bit on event lists that sit on chunk
-    boundaries, skip chunks, fill a whole row, or touch source 0 and the
-    last source."""
+def test_cuda_event_synapse_edge_lists(card, pattern, n_dest, route):
+    """The streaming kernel, f32 and packed at every width, bit for bit on
+    event lists that sit on chunk boundaries, skip chunks, fill a whole
+    row, or touch source 0 and the last source."""
     sp = _edge_spikes(pattern)
     rng = np.random.default_rng(sp.shape[1])
-    w = _t(rng.normal(size=(sp.shape[1], n_dest)).astype(np.float32)).to(card)
+    kernel, plain = _route_pair(route, rng, sp.shape[1], n_dest, card)
     ev = ops.events_from_spikes(_t(sp).to(card), sp.shape[1])
-    assert torch.equal(es.event_synapse_cuda(ev, w),
-                       es.event_synapse_plain(ev, w))
+    assert torch.equal(kernel(ev), plain(ev))
 
 
-def test_cuda_event_synapse_input_layer_rate_maps(card):
+@pytest.mark.parametrize("route", ROUTES)
+def test_cuda_event_synapse_input_layer_rate_maps(card, route):
     """The CIFAR10-DVS input layer at its real shape: events [128, 32768]
     from the class rate maps (8 requests of 16 steps) into a seeded
-    [32768, 1024] tile, bit for bit."""
+    [32768, 1024] tile, f32 or packed codes, bit for bit."""
     from repro_torch.configs.menage_paper import CIFAR_DATA
     from repro_torch.data.events import _class_rate_maps
     rng = np.random.default_rng(0)
@@ -139,11 +158,40 @@ def test_cuda_event_synapse_input_layer_rate_maps(card):
           < maps[np.arange(8) % CIFAR_DATA.num_classes, None]).astype(
               np.float32)
     spikes = _t(sp.reshape(128, -1)).to(card)
-    w = _t(rng.normal(size=(CIFAR_DATA.n_in, 1024)).astype(np.float32)).to(card)
+    kernel, plain = _route_pair(route, rng, CIFAR_DATA.n_in, 1024, card)
     ev = ops.events_from_spikes(spikes, CIFAR_DATA.n_in)
     assert ev.shape == (128, 32768)
-    assert torch.equal(es.event_synapse_cuda(ev, w),
-                       es.event_synapse_plain(ev, w))
+    assert torch.equal(kernel(ev), plain(ev))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("scale", [0.013, -0.37])
+def test_cuda_event_synapse_packed_every_code(card, bits, scale):
+    """Every sign-magnitude word of the width, the code "-0" (sign bit set,
+    magnitude 0) included, in every column position of a byte, dequantised
+    and summed bit for bit as the plain version does, at a positive and a
+    negative scale (where 0 * scale is -0.0)."""
+    n_words = 2 ** bits
+    ell = 8 // bits
+    n_dest = 64 * ell                    # whole 16-byte rows
+    # row s holds word (s + j) % n_words in column j
+    words = ((np.arange(n_words)[:, None] + np.arange(n_dest)[None])
+             % n_words).astype(np.uint8)
+    packed = np.zeros((n_words, n_dest // ell), np.uint8)
+    for lane in range(ell):
+        packed |= words[:, lane::ell] << (lane * bits)
+    pk = _t(packed.view(np.int8)).to(card)
+    spikes = torch.zeros(3 * n_words, n_words, device=card)
+    for s in range(n_words):
+        spikes[s, s] = 1                 # each code alone
+        spikes[n_words + s, :s + 1] = 1  # running sums
+    spikes[2 * n_words:, ::2] = 1
+    ev = ops.events_from_spikes(spikes, n_words)
+    got = es.event_synapse_packed_cuda(ev, pk, scale, bits)
+    want = es.event_synapse_packed_plain(ev, pk, scale, bits)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got[:n_words]),
+                       torch.signbit(want[:n_words]))
 
 
 def test_cuda_event_synapse_rejects_what_it_cannot_take(card):
@@ -203,18 +251,25 @@ def test_cuda_engine_matches_cpu_path_and_oracle(card, quant_bits):
 @pytest.mark.parametrize("m,k,n", [
     (1, 1, 1), (65, 33, 70), (130, 1500, 257), (256, 1024, 1024),
     (7, 9000, 129),
+    (129, 4097, 1025),           # every 128 x 128 tile and 32-step K ragged
+    (128, 32768, 1024),          # the CIFAR10-DVS input layer as a MAC
 ])
 def test_cuda_c2c_matmul_matches_plain(card, m, k, n):
     """The kernel against ``(x @ w_q) * scale`` at ragged shapes (edges
     guarded, K split or not), every code -128..127 drawn, at the
-    reference's tolerance; with 0/1 inputs and integer codes every partial
-    sum is an integer below 2**24, so there the two agree bit for bit."""
+    reference's tolerance and within the summation bound
+    ``2 (K + 1) 2**-24 (|x| @ |w_q|) |scale|``, the same result from two
+    calls; with 0/1 inputs and integer codes every partial sum is an
+    integer below 2**24, so there the two agree bit for bit."""
     rng = np.random.default_rng(m * 7 + n)
     x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(card)
     w = _t(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(card)
     got = c2c.c2c_matmul_cuda(x, w, 0.02)
-    torch.testing.assert_close(got, c2c.c2c_matmul_plain(x, w, 0.02),
-                               rtol=1e-4, atol=1e-3)
+    plain = c2c.c2c_matmul_plain(x, w, 0.02)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-3)
+    tol = 2 * (k + 1) * 2.0 ** -24 * (x.abs() @ w.float().abs()) * 0.02
+    assert bool(((got - plain).abs() <= tol).all())
+    assert torch.equal(c2c.c2c_matmul_cuda(x, w, 0.02), got)
     spikes = (x > 0.5).to(torch.float32)
     assert torch.equal(c2c.c2c_matmul_cuda(spikes, w, 0.02),
                        c2c.c2c_matmul_plain(spikes, w, 0.02))

@@ -335,3 +335,101 @@ def test_c2c_names_and_launcher_refuse_cpu():
     splits, chunk = c2c._splits(128, 32768, 1024, 132)
     assert splits * chunk >= 32768 > (splits - 1) * chunk
     assert chunk % c2c.BK == 0 and c2c._splits(64, 100, 64, 132)[0] == 1
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (128, 32768, 1024, 16), (256, 1024, 1024, 8), (129, 4097, 1025, 7),
+    (64, 100, 64, 1), (1, 1, 1, 1),
+])
+def test_c2c_splits_fill_one_wave(m, k, n, splits):
+    """K is split over at most one block per SM (the kernel's shared memory
+    allows one), each split a whole number of K steps at least MIN_SPLIT_K
+    deep, and the splits cover K exactly once."""
+    from repro_torch.kernels import c2c_matmul as c2c
+    got, chunk = c2c._splits(m, k, n, 132)
+    tiles = -(-m // c2c.TILE) * -(-n // c2c.TILE)
+    assert got == splits
+    assert chunk % c2c.BK == 0 and got * chunk >= k > (got - 1) * chunk
+    assert got == 1 or (got * tiles <= 132 and chunk >= c2c.MIN_SPLIT_K)
+
+
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero (PTX cvt.rna.tf32.f32), by bit operations."""
+    b = np.asarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _c2c_tf32_emulated(x, wq, scale, terms):
+    """The tensor-core product with x as ``terms`` TF32 terms (1: x_hi; 2:
+    x_hi + x_lo), every product exact and the sum taken in float64 before
+    one rounding to float32, then the scale in float32: the split's own
+    error, apart from the accumulation's rounding."""
+    hi = _tf32_rna(x)
+    parts = [hi] if terms == 1 else [hi, _tf32_rna(x - hi)]
+    w64 = wq.astype(np.float64)
+    acc = sum(p.astype(np.float64) @ w64 for p in parts)
+    return acc.astype(np.float32) * np.float32(scale)
+
+
+def _c2c_bound(x, wq, scale):
+    k = x.shape[1]
+    return (2 * (k + 1) * 2.0 ** -24) * (np.abs(x.astype(np.float64))
+                                         @ np.abs(wq.astype(np.float64))) \
+        * abs(scale)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 1024), (8, 32768, 64)])
+def test_c2c_two_term_tf32_split_within_summation_bound(m, k, n):
+    """The kernel's numeric premise, before any card: x split into two
+    TF32 terms times exact int8 codes lies within the tolerance
+    ``2 (K + 1) 2**-24 (|x| @ |w_q|) |scale|`` of the plain float32
+    product with a wide margin, at the reference benchmark's shape and at
+    the CIFAR10-DVS input layer's K."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    wq = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    plain = ops.c2c_matmul(_t(x), _t(wq), 0.02).numpy()
+    err = np.abs(_c2c_tf32_emulated(x, wq, 0.02, terms=2) - plain)
+    assert (err / _c2c_bound(x, wq, 0.02)).max() < 0.05
+
+
+def test_c2c_single_tf32_term_misses_summation_bound():
+    """Why x is split: with one TF32 term the error of each product (up to
+    2**-11 |x w|) adds up past the tolerance at K = 1024 where the
+    roundings share a sign, while the two-term split is exact there."""
+    k = 1024
+    x = np.full((4, k), 1 + 2.0 ** -12 + 2.0 ** -13, np.float32)
+    x[1] *= -1
+    wq = np.full((k, 8), 127, np.int8)
+    wq[:, 1::2] = -128
+    plain = ops.c2c_matmul(_t(x), _t(wq), 0.02).numpy()
+    bound = _c2c_bound(x, wq, 0.02)
+    one = np.abs(_c2c_tf32_emulated(x, wq, 0.02, terms=1) - plain)
+    two = np.abs(_c2c_tf32_emulated(x, wq, 0.02, terms=2) - plain)
+    assert (one > bound).all()
+    assert (two <= bound).all()
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_packed_dequant_bit_trick_matches_plain(bits):
+    """The packed kernel's dequantisation, emulated in numpy: every
+    sign-magnitude word w of the width (the code "-0" included) becomes
+    ``float(0x4B000000 | sign << 31 | mag) - float(0x4B000000 | sign << 31)``
+    = +-mag (+0 for "-0"), then one float32 multiply by the scale; bit for
+    bit what the plain version's ``q * scale`` gives, at scales of both
+    signs."""
+    words = np.arange(2 ** bits, dtype=np.uint32)
+    mag = words & np.uint32(2 ** (bits - 1) - 1)
+    sign = ((words >> np.uint32(bits - 1)) & np.uint32(1)) << np.uint32(31)
+    two23 = np.uint32(0x4B000000)
+    q = ((two23 | sign | mag).view(np.float32)
+         - (two23 | sign).view(np.float32))
+    packed = np.zeros((2 ** bits, 1), np.uint8)
+    packed[:, 0] = words                # lane 0 of byte 0 of each row
+    for scale in (0.013, -0.37, 3.0):
+        got = q * np.float32(scale)
+        want = es.dequantize_packed(_t(packed.view(np.int8)), scale,
+                                    bits)[:, 0].numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
