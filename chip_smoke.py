@@ -10,9 +10,17 @@ Phases, one line each:
   2. kernels   every kernel of the serving path against its plain PyTorch
                version on the card, bit-exact, at the shapes the serving
                run gives it, with times; the packed kernel also at 4 and 2
-               bits at the input layer's events; and c2c_matmul, the int8-weight
-               C2C-ladder MAC that no serving path runs, at the reference
-               benchmark's shape and as a dense input layer of the model
+               bits at the input layer's events; lif_scan also at
+               [8, 32, 1024], with its device time per launch, the host's
+               issue time per call and the launch floor; and c2c_matmul,
+               the int8-weight C2C-ladder MAC that no serving path runs, at
+               the reference benchmark's shape and as a dense input layer
+               of the model
+     event_lists  both event_synapse routes on event lists with interior
+               -1s, against their plain versions, and an unsorted row
+               refused
+     sync_free one engine forward of each route under
+               torch.cuda.set_sync_debug_mode("error")
   3. serve     the paper's CIFAR10-DVS MLP at the sensor's native width
                (32768 -> 1000 -> 500 -> 200 -> 100 -> 10, seeded random
                weights, 50 % magnitude-pruned, 8-bit, Accel_2) through
@@ -38,6 +46,7 @@ CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -58,6 +67,7 @@ MIN_RATE = 0.02              # least spike rate the gain must give each layer
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores, same sheet
 TF32_FLOP_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
+REPS = 200                   # launches a device or issue time is taken over
 
 
 def log(phase: str, **fields) -> None:
@@ -83,6 +93,78 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(fn, kernel: str, reps: int = REPS) -> dict:
+    """``fn``'s device time per call in µs, two ways: ``prof``, the mean
+    duration of the kernels whose name holds ``kernel`` in a
+    ``torch.profiler`` trace of ``reps`` calls (None if the trace holds
+    none); ``events``, CUDA events around ``reps`` back-to-back calls, which
+    equal the device time only while the device, not the host, is the
+    slower side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.device_time_total for e in prof.events()
+            if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return dict(prof=sum(durs) / len(durs) if durs else None,
+                events=cuda_ms(fn, reps) * 1e3)
+
+
+def issue_us(fn, reps: int = REPS) -> float:
+    """Host µs per call of ``fn`` over ``reps`` calls issued without a sync
+    (one sync after, outside the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
+def lif_timing(cur: torch.Tensor, lif) -> dict:
+    """lif_scan at ``cur``'s shape [B, T, n], in µs: the kernel's device
+    time per launch (the bare C entry on a preallocated output), the
+    host's issue time per ``ops.lif_scan`` call, and the launch floor, an
+    empty kernel of the same grid timed the same way.  tools/
+    torch_lif_bench.py also times an older checkout with it, whose entry
+    takes no column tile and which has no empty kernel (floor None)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lif_update as lu
+    from repro_torch.kernels import ops
+    b, t, n = cur.shape
+    lib = _build.library("lif_update")
+    tiled = "empty_launch" in _build.SIGNATURES["lif_update"]
+    cols = lu.tile_cols(b, n, torch.cuda.get_device_properties(
+        cur.device).multi_processor_count) if tiled else None
+    shape = (b, t, n, cols) if tiled else (b, t, n)
+    out = torch.empty_like(cur)
+    consts = [ctypes.c_float(np.float32(x))
+              for x in (lif.beta, lif.threshold, lif.v_reset)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def bare():
+        _build.check(lib, lib.lif_scan_f32(
+            cur.data_ptr(), None, None, out.data_ptr(), *shape, *consts,
+            stream), "lif_update")
+
+    def empty():
+        _build.check(lib, lib.empty_launch(b * -(-n // cols), cols, stream),
+                     "empty_launch")
+
+    dev = device_us(bare, "lif_")
+    floor = device_us(empty, "empty_kernel") if tiled else {}
+    return dict(cols=cols, device_us=dev["prof"], device_event_us=dev["events"],
+                issue_us=issue_us(lambda: ops.lif_scan(cur, lif)),
+                floor_us=floor.get("prof"), floor_event_us=floor.get("events"))
 
 
 def pruned_mlp(rng: np.random.Generator, sizes, gain: float = 1.0):
@@ -190,14 +272,14 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
     bytes_packed = n_valid * 4 + n_rows_read * n_dest * pl.bits // 8 + out_bytes
     flops = n_valid * n_dest
     c3 = es.event_synapse_plain(ev, dl.w_fused).reshape(b, t, n_dest)
-    lif_bytes = 2 * c3.numel() * 4
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = [
         dict(name="event_synapse",
              source="src/repro_torch/kernels/csrc/event_synapse.cu",
              replaces="src/repro/kernels/event_synapse.py:49",
-             ms=cuda_ms(lambda: ops.event_synapse(ev, dl.w_fused)),
+             ms=cuda_ms(lambda: ops.event_synapse(ev, dl.w_fused,
+                                                  compacted=True)),
              plain_ms=cuda_ms(lambda: es.event_synapse_plain(ev, dl.w_fused),
                               reps=2),
              bound=(bytes_dense, flops),
@@ -206,17 +288,12 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
              source="src/repro_torch/kernels/csrc/event_synapse.cu",
              replaces="src/repro/kernels/event_synapse.py:124",
              ms=cuda_ms(lambda: ops.event_synapse_packed(
-                 ev, pl.w_packed, pl.scale, bits=pl.bits)),
+                 ev, pl.w_packed, pl.scale_host, bits=pl.bits,
+                 compacted=True)),
              plain_ms=cuda_ms(lambda: es.event_synapse_packed_plain(
                  ev, pl.w_packed, pl.scale, pl.bits), reps=2),
              bound=(bytes_packed, 2 * flops),
              library_ms=cuda_ms(lambda: torch.matmul(spikes, dl.w_fused))),
-        dict(name="lif_update",
-             source="src/repro_torch/kernels/csrc/lif_update.cu",
-             replaces="src/repro/kernels/lif_update.py:32",
-             ms=cuda_ms(lambda: ops.lif_scan(c3, dense.lif)),
-             plain_ms=cuda_ms(lambda: lu.lif_scan_plain(c3, dense.lif)),
-             bound=(lif_bytes, 4 * c3.numel()), library_ms=None),
     ]
     for row in rows:
         row.update(route="cuda", max_abs_err=err[row["name"]],
@@ -228,8 +305,120 @@ def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
             else round(row["library_ms"], 4),
             shape=f"events[{r},{ev.shape[1]}]x{dl.n_src}x{n_dest}",
             valid_events=n_valid)
+    rows.append(lif_row(c3, dense.lif, err["lif_update"]))
     packed_widths(ev, spikes, dl.n_src, n_dest, n_valid, n_rows_read)
     return rows
+
+
+def lif_row(c3: torch.Tensor, lif, max_abs_err: float) -> dict:
+    """The lif_update kernel's row at the input layer's currents ``c3``:
+    ``ms`` is its device time per launch (profiler; CUDA events where the
+    profiler saw no kernel), beside the host's issue time per call and the
+    launch floor; then the same at [8, 32, 1024] on seeded currents,
+    checked bit for bit against the plain version first."""
+    from repro_torch.kernels import lif_update as lu
+    from repro_torch.kernels import ops
+
+    def timed(cur):
+        t = lif_timing(cur, lif)
+        dev = t["device_us"] if t["device_us"] is not None \
+            else t["device_event_us"]
+        floor = t["floor_us"] if t["floor_us"] is not None \
+            else t["floor_event_us"]
+        return t, dev / 1e3, floor / 1e3
+
+    t16, ms, floor_ms = timed(c3)
+    rng = np.random.default_rng(SEED + 7)
+    c32 = torch.from_numpy(rng.normal(0.3, 0.6, (8, 32, 1024))
+                           .astype(np.float32)).to(c3.device)
+    require(torch.equal(ops.lif_scan(c32, lif), lu.lif_scan_plain(c32, lif)),
+            "lif_scan at [8, 32, 1024]")
+    t32, ms32, floor32 = timed(c32)
+    row = dict(name="lif_update", route="cuda",
+               source="src/repro_torch/kernels/csrc/lif_update.cu",
+               replaces="src/repro/kernels/lif_update.py:32",
+               ms=ms, issue_ms=t16["issue_us"] / 1e3, floor_ms=floor_ms,
+               plain_ms=cuda_ms(lambda: lu.lif_scan_plain(c3, lif)),
+               library_ms=None, max_abs_err=max_abs_err,
+               **bound(2 * c3.numel() * 4, 4 * c3.numel()))
+    r = lambda v: None if v is None else round(v, 5)  # noqa: E731
+    log("kernel", name="lif_update", shape="x".join(map(str, c3.shape)),
+        ms=r(ms), plain_ms=round(row["plain_ms"], 4),
+        bound_ms=round(row["bound_ms"], 5), bound_by=row["bound_by"],
+        library_ms=None, cols=t16["cols"], device_us=r(t16["device_us"]),
+        device_event_us=r(t16["device_event_us"]),
+        issue_us=r(t16["issue_us"]), floor_us=r(t16["floor_us"]),
+        floor_event_us=r(t16["floor_event_us"]),
+        at_8x32x1024=json.dumps({k: r(v) for k, v in t32.items()}),
+        bound_ms_8x32x1024=round(bound(2 * c32.numel() * 4,
+                                       4 * c32.numel())["bound_ms"], 5))
+    return row
+
+
+def phase_event_lists(dense, packed, spikes: torch.Tensor) -> dict:
+    """Both event_synapse routes on event lists outside the MEM_E writer's
+    layout, through the public ops: layer 2's real events (``spikes``
+    [R, n_src]) spread out with a -1 after every entry and about a tenth
+    of the entries masked to -1, so every row has interior -1s; each result
+    bit for bit against the plain version on the same list (which adds the
+    valid entries in list order) and against the kernel on the compacted
+    list.  An unsorted row must raise ValueError."""
+    from repro_torch.kernels import event_synapse as es
+    from repro_torch.kernels import ops
+
+    dl, pl = dense.layers[1], packed.layers[1]
+    ev = ops.events_from_spikes(spikes, dl.n_src)
+    r, e = ev.shape
+    wide = torch.full((r, 2 * e), -1, dtype=torch.int32, device=ev.device)
+    wide[:, ::2] = ev
+    gen = torch.Generator(device=ev.device).manual_seed(SEED + 8)
+    drop = torch.rand(wide.shape, generator=gen, device=ev.device) < 0.1
+    wide = torch.where(drop, -1, wide)
+    kept = es.compact_events(wide)
+    routes = {
+        "dense": (lambda v, **kw: ops.event_synapse(v, dl.w_fused, **kw),
+                  lambda v: es.event_synapse_plain(v, dl.w_fused)),
+        "packed": (lambda v, **kw: ops.event_synapse_packed(
+            v, pl.w_packed, pl.scale, bits=pl.bits, **kw),
+                   lambda v: es.event_synapse_packed_plain(
+            v, pl.w_packed, pl.scale, pl.bits)),
+    }
+    interior = int(((wide[:, :-1] == -1) & (wide[:, 1:] >= 0)).sum())
+    for name, (kernel, plain) in routes.items():
+        got = kernel(wide)
+        require(torch.equal(got, plain(wide)),
+                f"{name} route on interior -1 lists equals its plain version")
+        require(torch.equal(got, kernel(kept, compacted=True)),
+                f"{name} route on interior -1 lists equals the compacted list")
+        unsorted = ev.clone()
+        unsorted[3, :2] = torch.tensor([5, 2], dtype=torch.int32)
+        try:
+            kernel(unsorted)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit(f"FAILED: {name} route took an unsorted row")
+    return dict(rows=r, width=2 * e, interior_gaps=interior,
+                valid=int((wide >= 0).sum()), dense_equal=True,
+                packed_equal=True, unsorted_refused=True)
+
+
+def phase_sync_free(models: dict, x: torch.Tensor) -> dict:
+    """One engine forward of each model under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    operation that waits for the device; the routes' outputs equal."""
+    from repro_torch.engine.batched_run import _forward_impl
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {name: _forward_impl(m, x, None) for name, m in models.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    first = next(iter(outs.values()))
+    require(all(torch.equal(o[-1], first[-1]) for o in outs.values()),
+            "sync-free forwards agree across routes")
+    return dict(routes=",".join(outs), raised=False,
+                out_spikes=int(first[-1].sum().item()))
 
 
 def packed_widths(ev, spikes, n_src: int, n_dest: int, n_valid: int,
@@ -257,7 +446,7 @@ def packed_widths(ev, spikes, n_src: int, n_dest: int, n_valid: int,
                   2 * n_valid * n_dest)
         log("kernel", name="event_synapse_packed", bits=bits,
             ms=round(cuda_ms(lambda: ops.event_synapse_packed(
-                ev, pk, scale, bits=bits)), 4),
+                ev, pk, scale, bits=bits, compacted=True)), 4),
             bound_ms=round(b["bound_ms"], 4), bound_by=b["bound_by"],
             library_ms=round(cuda_ms(lambda: torch.matmul(spikes, tile)), 4),
             shape=f"events[{ev.shape[0]},{ev.shape[1]}]x{n_src}x{n_dest}",
@@ -614,6 +803,13 @@ def main() -> int:
     # 2. kernels against their plain versions, at the main path's shapes
     kernels = phase_kernels(dense, packed, x_big)
     kernels.append(phase_c2c(ws[0], x_big))
+    from repro_torch.engine.batched_run import _forward_impl
+    b_big, t_big, _ = x_big.shape
+    l1 = _forward_impl(dense, x_big, None)[0]
+    log("event_lists", **phase_event_lists(
+        dense, packed, l1.reshape(b_big * t_big, -1).contiguous()))
+    log("sync_free", **phase_sync_free({"dense": dense, "packed": packed},
+                                       x_big))
 
     # 3. serve: warm once, then the counted run of the dense route
     drive(dense, streams, policy)

@@ -101,6 +101,9 @@ class PackedLayer:
     # lanes per int8 byte, plus the per-tensor quant scale
     w_packed: torch.Tensor | None = None  # i8 [n_src, n_dest_pad * bits / 8]
     scale: torch.Tensor | None = None     # f32 [1, 1]
+    # the same scale on the host: what the forward hands the packed
+    # launcher, so that no launch reads the device
+    scale_host: np.float32 | None = None
     bits: int = 8
 
 
@@ -126,7 +129,7 @@ class PackedModel:
 
 
 def _pack_layer_codes(layer, w_host: np.ndarray, bits: int, device
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      ) -> tuple[torch.Tensor, torch.Tensor, np.float32]:
     """Host-side operand packing for one layer: recover the integer codes
     from the replayed (dequantized) tile and pack them into sign-magnitude
     sub-byte lanes.  Exactness is *asserted*: every stored table value must
@@ -146,7 +149,8 @@ def _pack_layer_codes(layer, w_host: np.ndarray, bits: int, device
             "from quantize_symmetric at this scale")
     w_packed = pack_signmag(q.astype(np.int8), bits)
     return (torch.from_numpy(w_packed).to(device),
-            torch.tensor([[scale]], dtype=torch.float32, device=device))
+            torch.tensor([[scale]], dtype=torch.float32, device=device),
+            scale)
 
 
 def _fused_tile(layer, n_dest_pad: int,
@@ -211,8 +215,9 @@ def pack_model(model: MappedModel, block_d: int = DEFAULT_BLOCK_D,
                                    bits=bits)
         w_host = _fused_tile(layer, n_dest_pad, weight_dict)
         if packed_ops:
-            packed_layer.w_packed, packed_layer.scale = _pack_layer_codes(
-                layer, w_host, bits, device)
+            (packed_layer.w_packed, packed_layer.scale,
+             packed_layer.scale_host) = _pack_layer_codes(layer, w_host, bits,
+                                                          device)
         else:
             packed_layer.w_fused = torch.from_numpy(w_host).to(device)
         layers.append(packed_layer)
@@ -300,7 +305,9 @@ def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
                   max_events: int | None) -> list[torch.Tensor]:
     """Per-layer output spike trains ([B, T, n_dest] each; the last entry is
     the model output).  Dispatch = MEM_E write + event_synapse kernel; LIF =
-    one lif_scan launch per layer."""
+    one lif_scan launch per layer.  Nothing here reads the device: the event
+    lists come compacted from the MEM_E writer, and the packed route's scale
+    from the host."""
     b, t, _ = spikes.shape
     outs = []
     for layer in packed.layers:
@@ -308,9 +315,11 @@ def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
                                         _mem_e_depth(layer, max_events))
         if layer.w_packed is not None:
             currents = ops.event_synapse_packed(
-                events, layer.w_packed, layer.scale, bits=layer.bits)
+                events, layer.w_packed, layer.scale_host, bits=layer.bits,
+                compacted=True)
         else:
-            currents = ops.event_synapse(events, layer.w_fused)
+            currents = ops.event_synapse(events, layer.w_fused,
+                                         compacted=True)
         out = ops.lif_scan(currents.reshape(b, t, layer.n_dest_pad),
                            packed.lif)
         spikes = out[..., :layer.n_dest]

@@ -48,11 +48,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "event_synapse": {
         "event_synapse_f32": [_P, _L, _P, _L, _P, _I, _I, _I, _P],
-        "event_synapse_packed_i8": [_P, _L, _P, _L, _F, _I, _P, _I, _I, _I,
-                                    _P],
+        "event_synapse_packed_i8": [_P, _L, _P, _L, _F, _P, _I, _P, _I, _I,
+                                    _I, _P],
     },
     "lif_update": {
-        "lif_scan_f32": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P],
+        "lif_scan_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _P],
+        "empty_launch": [_L, _I, _P],
     },
     "c2c_matmul": {
         "c2c_matmul_f32_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

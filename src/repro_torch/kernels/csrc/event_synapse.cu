@@ -9,11 +9,13 @@
 // with W the f32 tile, or for packed codes W[s, d] = fl32(q[s, d] * scale).
 //
 // Contract of the event lists.  Each row holds its valid sources first, in
-// ascending order, then -1 padding (the layout events_from_spikes writes).
-// A row's sum stops at its first -1: padding only ever adds +0.0, so the
-// early stop is exact.  The kernel relies on the ascending order too: it
-// walks the sources in ascending chunks, and adds a row's events in list
-// order only because that order is ascending.
+// strictly ascending order, then -1 padding (the layout events_from_spikes
+// writes; the launchers in event_synapse.py compact any other list into it
+// and reject rows that do not ascend).  A row's sum stops at its first -1:
+// padding only ever adds +0.0, so the early stop is exact.  The kernel
+// relies on the ascending order too: it walks the sources in ascending
+// chunks, and adds a row's events in list order only because that order is
+// ascending.
 //
 // One streaming kernel serves both routes, templated on the stage element:
 // f32 weights (kBits = 32) or sign-magnitude codes of kBits in {2, 4, 8}
@@ -323,8 +325,9 @@ __global__ void __launch_bounds__(kRows * kCols / kVec, 1)
 stream_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
               const int32_t* __restrict__ events, long long ev_ld,
               const uint8_t* __restrict__ w, long long w_ld, bool w_vec,
-              float scale, float* __restrict__ out, int n_rows,
-              int n_events, int n_dest) {
+              float scale, const float* __restrict__ scale_ptr,
+              float* __restrict__ out, int n_rows, int n_events,
+              int n_dest) {
   constexpr int kLanes = kCols / kVec;
   constexpr int kThreads = kRows * kLanes;
   constexpr int kWarps = kThreads / 32;
@@ -355,6 +358,7 @@ stream_kernel(const __grid_constant__ CUtensorMap w_map, bool w_tma,
   __shared__ int warp_min[2][kWarps];  // by iteration parity
   __shared__ int src_lo, src_hi;
 
+  if (kCodes && scale_ptr) scale = __ldg(scale_ptr);  // a device scale
   const int tid = threadIdx.x;
   const int lane = tid % kLanes;
   const long long r = (long long)blockIdx.x * kRows + tid / kLanes;
@@ -655,11 +659,13 @@ bool weight_map(CUtensorMap* map, const void* w, long long w_ld,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// w: the tile's bytes, row stride w_ld bytes; scale is read for codes only.
+// w: the tile's bytes, row stride w_ld bytes; the scale is read for codes
+// only, from scale_ptr (device memory) where that is not null.
 template <int kBits, int kCols, int kRows, int kSrc, int kStages, int kEv>
 int launch_stream(const void* events, long long ev_ld, const void* w,
-                  long long w_ld, float scale, void* out, int n_rows,
-                  int n_events, int n_dest, void* stream) {
+                  long long w_ld, float scale, const float* scale_ptr,
+                  void* out, int n_rows, int n_events, int n_dest,
+                  void* stream) {
   constexpr int kThreads = kRows * kCols / kVec;
   constexpr int kRowBytes = kCols * kBits / 8;
   constexpr int kSmem = kStages * kSrc * kRowBytes +
@@ -678,19 +684,19 @@ int launch_stream(const void* events, long long ev_ld, const void* w,
   const dim3 grid((n_rows + kRows - 1) / kRows, (n_dest + kCols - 1) / kCols);
   kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       map, w_tma, (const int32_t*)events, ev_ld, (const uint8_t*)w, w_ld,
-      w_vec, scale, (float*)out, n_rows, n_events, n_dest);
+      w_vec, scale, scale_ptr, (float*)out, n_rows, n_events, n_dest);
   return (int)cudaGetLastError();
 }
 
 // The kernel at the shape chosen for kBits.
 template <int kBits>
 int launch(const void* events, long long ev_ld, const void* w,
-           long long w_ld, float scale, void* out, int n_rows, int n_events,
-           int n_dest, void* stream) {
+           long long w_ld, float scale, const float* scale_ptr, void* out,
+           int n_rows, int n_events, int n_dest, void* stream) {
   using S = Shape<kBits>;
   return launch_stream<kBits, S::kCols, S::kRows, S::kSrc, S::kStages,
-                       S::kEv>(events, ev_ld, w, w_ld, scale, out, n_rows,
-                               n_events, n_dest, stream);
+                       S::kEv>(events, ev_ld, w, w_ld, scale, scale_ptr, out,
+                               n_rows, n_events, n_dest, stream);
 }
 
 }  // namespace
@@ -703,25 +709,29 @@ extern "C" {
 int event_synapse_f32(const void* events, long long ev_ld, const void* w,
                       long long w_ld, void* out, int n_rows, int n_events,
                       int n_dest, void* stream) {
-  return launch<32>(events, ev_ld, w, w_ld * 4, 0.0f, out, n_rows, n_events,
-                    n_dest, stream);
+  return launch<32>(events, ev_ld, w, w_ld * 4, 0.0f, nullptr, out, n_rows,
+                    n_events, n_dest, stream);
 }
 
 // packed i8 [n_src, n_dest * bits / 8] (row stride w_ld bytes), bits in
-// {2, 4, 8}; each code is dequantised as fl32(q * scale) before its add.
+// {2, 4, 8}; each code is dequantised as fl32(q * scale) before its add,
+// the scale read from scale_ptr (one f32 in device memory) where that is
+// not null, else taken by value: neither reads the device from the host.
 int event_synapse_packed_i8(const void* events, long long ev_ld,
                             const void* packed, long long w_ld, float scale,
-                            int bits, void* out, int n_rows, int n_events,
-                            int n_dest, void* stream) {
+                            const void* scale_ptr, int bits, void* out,
+                            int n_rows, int n_events, int n_dest,
+                            void* stream) {
+  const float* sp = (const float*)scale_ptr;
   switch (bits) {
     case 2:
-      return launch<2>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+      return launch<2>(events, ev_ld, packed, w_ld, scale, sp, out, n_rows,
                        n_events, n_dest, stream);
     case 4:
-      return launch<4>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+      return launch<4>(events, ev_ld, packed, w_ld, scale, sp, out, n_rows,
                        n_events, n_dest, stream);
     case 8:
-      return launch<8>(events, ev_ld, packed, w_ld, scale, out, n_rows,
+      return launch<8>(events, ev_ld, packed, w_ld, scale, sp, out, n_rows,
                        n_events, n_dest, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -7,44 +7,53 @@ the Pallas ``event_synapse`` / ``event_synapse_packed``).  The ``*_plain``
 functions compute the same thing in PyTorch, in the same order: the CPU path
 and the yardstick the kernels are held to on the card.
 
-Contract of an event list ``events[R, E]`` (int32): each row holds source
-indices in ascending order, then ``-1`` padding — the layout
-:func:`events_from_spikes` writes.  A row's sum stops at its first ``-1``;
-padding only ever adds ``+0.0``, so for a compacted list that equals the
-masked sum over every valid entry.  The kernel (one streaming kernel for
-f32 tiles and packed codes) also relies on the ascending order: it streams
-the weight tile through shared memory in ascending source chunks and adds
-each row's events chunk by chunk, which is list order only because the
-list is ascending.
+Contract of an event list ``events[R, E]`` (int32), as the reference's:
+every entry ``>= 0`` is a source index, every ``-1`` is padding, wherever it
+sits, and a row's sum adds each valid entry's weight row in list order, one
+rounded float32 add each.  Skipping a padding entry equals the reference's
+``acc + 0.0`` bit for bit: the sum starts at ``+0.0`` and so is never
+``-0.0``.
+
+The plain versions take every such list.  The kernel (one streaming kernel
+for f32 tiles and packed codes) takes compacted, strictly ascending rows
+only, the layout :func:`events_from_spikes` writes: it streams the weight
+tile through shared memory in ascending source chunks, which is list order
+only for an ascending list.  So the CUDA launchers first compact each row
+on the device (a stable prefix-count-and-scatter that keeps list order,
+turning interior ``-1`` s into trailing padding, bit-exact for the reason
+above), then check on the device that every compacted row is strictly
+ascending and inside the tile, and raise ``ValueError`` for a row that is
+not: the kernel cannot reproduce list order for an unsorted row.  That
+check reads one flag back to the host.  ``compacted=True`` skips both steps
+for a caller that holds :func:`events_from_spikes` output, as the engine's
+forward does, which then reads nothing from the device.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import check_bits, lanes_per_byte, unpack_signmag
 from repro_torch.kernels import _build
 
 
-def _leading_valid(events: torch.Tensor) -> torch.Tensor:
-    """bool [R, E]: True up to each row's first -1."""
-    return (events >= 0).to(torch.int32).cumprod(dim=1).bool()
-
-
 def event_synapse_plain(events: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
-    """``out[r] = sum of weights[events[r, e]]`` over the row's leading valid
-    events, one float32 add per event in ascending ``e`` — the oracle's
-    accumulation order, so the sums match it bit for bit."""
+    """``out[r] = sum of weights[events[r, e]]`` over the row's valid
+    events (``>= 0``, wherever a ``-1`` sits), one float32 add per event in
+    ascending ``e`` — the oracle's accumulation order, so the sums match it
+    bit for bit."""
     r, n_events = events.shape
     out = torch.zeros(r, weights.shape[1], dtype=torch.float32,
                       device=weights.device)
     if r == 0 or n_events == 0:
         return out
-    valid = _leading_valid(events)
-    depth = int(valid.sum(dim=1).max())
+    valid = events >= 0
+    used = valid.any(dim=0).nonzero()
+    depth = int(used[-1]) + 1 if used.numel() else 0   # last valid position
     for e in range(depth):
         rows = weights[events[:, e].clamp(min=0).long()]
         out = torch.where(valid[:, e, None], out + rows, out)
@@ -87,15 +96,69 @@ def _check_weights(w: torch.Tensor, events: torch.Tensor, dtype) -> None:
         raise ValueError("weight rows must be contiguous")
 
 
+def compact_events(events: torch.Tensor) -> torch.Tensor:
+    """Each row's valid entries moved to its front in list order, ``-1``
+    after them: the stable prefix-count-and-scatter of
+    :func:`events_from_spikes`, on the events' device, with no sync.  A
+    view whose rows are contiguous."""
+    r, n_events = events.shape
+    valid = events >= 0
+    pos = torch.cumsum(valid, dim=1, dtype=torch.int32) - 1
+    pos = torch.where(valid, pos, n_events)
+    out = torch.full((r, n_events + 1), -1, dtype=torch.int32,
+                     device=events.device)
+    out.scatter_(1, pos.long(), events)
+    return out[:, :n_events]
+
+
+def _kernel_events(events: torch.Tensor, n_src: int,
+                   compacted: bool) -> torch.Tensor:
+    """The event list in the kernel's layout.  ``compacted``: the caller
+    vouches for it (``events_from_spikes`` output).  Else compacted here,
+    and every row checked to ascend strictly inside ``[0, n_src)``, with one
+    flag read back to the host."""
+    if compacted:
+        return events
+    ev = compact_events(events)
+    nxt = ev[:, 1:]
+    unsorted, outside = torch.stack([
+        ((nxt >= 0) & (nxt <= ev[:, :-1])).any(),
+        (ev >= n_src).any()]).tolist()
+    if unsorted:
+        raise ValueError(
+            "event rows must hold their valid sources in strictly ascending "
+            "order (-1 padding may sit anywhere): the CUDA kernel adds each "
+            "row's events in ascending source chunks, which is list order "
+            "only for an ascending list; sort the rows, or use the plain "
+            "version on the CPU, which adds in list order")
+    if outside:
+        raise ValueError(f"event rows hold a source index >= n_src = {n_src}")
+    return ev
+
+
+def _scale_arg(scale, device: torch.device):
+    """The layer scale as the kernel takes it: ``(value, None)`` for a
+    Python or numpy number or a CPU tensor (read on the host, no device
+    sync), ``(0.0, tensor)`` for a CUDA tensor, whose value the kernel reads
+    through its pointer."""
+    if isinstance(scale, torch.Tensor) and scale.is_cuda:
+        if scale.numel() != 1 or scale.device != device:
+            raise ValueError(f"scale must be one value on {device}, got "
+                             f"{tuple(scale.shape)} on {scale.device}")
+        return 0.0, scale.to(torch.float32).reshape(1).contiguous()
+    return float(np.asarray(scale, dtype=np.float32).reshape(())), None
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def event_synapse_cuda(events: torch.Tensor,
-                       weights: torch.Tensor) -> torch.Tensor:
-    """Launch the dense kernel: events i32 [R, E] (each row's valid sources
-    ascending, as :func:`events_from_spikes` writes them), weights f32
-    [n_src, n_dest] on one CUDA device -> currents f32 [R, n_dest]."""
+def event_synapse_cuda(events: torch.Tensor, weights: torch.Tensor, *,
+                       compacted: bool = False) -> torch.Tensor:
+    """Launch the dense kernel: events i32 [R, E] (see the module's
+    contract; ``compacted=True`` for :func:`events_from_spikes` output),
+    weights f32 [n_src, n_dest] on one CUDA device -> currents f32
+    [R, n_dest]."""
     _check_events(events)
     _check_weights(weights, events, torch.float32)
     r, n_events = events.shape
@@ -103,8 +166,9 @@ def event_synapse_cuda(events: torch.Tensor,
     out = torch.empty(r, n_dest, dtype=torch.float32, device=events.device)
     if r == 0 or n_events == 0 or n_dest == 0:
         return out.zero_()
+    ev = _kernel_events(events, weights.shape[0], compacted)
     lib = _build.library("event_synapse")
-    err = lib.event_synapse_f32(events.data_ptr(), events.stride(0),
+    err = lib.event_synapse_f32(ev.data_ptr(), ev.stride(0),
                                 weights.data_ptr(), weights.stride(0),
                                 out.data_ptr(), r, n_events, n_dest, _stream())
     _build.launches["event_synapse"] += 1
@@ -113,10 +177,13 @@ def event_synapse_cuda(events: torch.Tensor,
 
 
 def event_synapse_packed_cuda(events: torch.Tensor, packed_w: torch.Tensor,
-                              scale, bits: int) -> torch.Tensor:
-    """Launch the packed kernel: events i32 [R, E], packed_w i8
-    [n_src, n_dest * bits / 8] (quant.pack_signmag lanes), scale the f32
-    layer scale -> currents f32 [R, n_dest]."""
+                              scale, bits: int, *,
+                              compacted: bool = False) -> torch.Tensor:
+    """Launch the packed kernel: events i32 [R, E] (as for
+    :func:`event_synapse_cuda`), packed_w i8 [n_src, n_dest * bits / 8]
+    (quant.pack_signmag lanes), scale the f32 layer scale: a host number,
+    passed by value, or a one-element CUDA tensor, which the kernel reads
+    (neither syncs) -> currents f32 [R, n_dest]."""
     _check_events(events)
     _check_weights(packed_w, events, torch.int8)
     r, n_events = events.shape
@@ -124,12 +191,14 @@ def event_synapse_packed_cuda(events: torch.Tensor, packed_w: torch.Tensor,
     out = torch.empty(r, n_dest, dtype=torch.float32, device=events.device)
     if r == 0 or n_events == 0 or n_dest == 0:
         return out.zero_()
-    scale_f = float(torch.as_tensor(scale, dtype=torch.float32).reshape(()))
+    scale_f, scale_t = _scale_arg(scale, events.device)
+    ev = _kernel_events(events, packed_w.shape[0], compacted)
     lib = _build.library("event_synapse")
     err = lib.event_synapse_packed_i8(
-        events.data_ptr(), events.stride(0), packed_w.data_ptr(),
-        packed_w.stride(0), scale_f, bits, out.data_ptr(), r, n_events,
-        n_dest, _stream())
+        ev.data_ptr(), ev.stride(0), packed_w.data_ptr(),
+        packed_w.stride(0), scale_f,
+        None if scale_t is None else scale_t.data_ptr(), bits,
+        out.data_ptr(), r, n_events, n_dest, _stream())
     _build.launches["event_synapse_packed"] += 1
     _build.check(lib, err, "event_synapse_packed")
     return out

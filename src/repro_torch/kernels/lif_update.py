@@ -3,12 +3,16 @@
 One kernel (``csrc/lif_update.cu``) in two forms: :func:`lif_update_cuda`,
 the single clock edge of the Pallas ``lif_update``, and
 :func:`lif_scan_cuda`, the whole ``[B, T, n]`` rollout in one launch with
-``v`` carried in a register — what the engine runs per layer.
+``v`` carried in a register — what the engine runs per layer.  A block owns
+one sample and a tile of 32, 64 or 128 neurons (:func:`tile_cols`), so that
+the grid fills the card; the launch path keeps its library entry and the
+LIF constants as float32 once, and reads nothing from the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,15 +42,46 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous float32, got {x.dtype}")
 
 
+TILE_COLS = (128, 64, 32)   # neurons a block may own, widest first
+FILL = 7 / 8                # share of the SMs a tile's grid must cover
+
+
+def tile_cols(n_batch: int, n: int, n_sms: int) -> int:
+    """The neurons a block owns: the widest tile whose grid of
+    ``n_batch * ceil(n / cols)`` blocks covers at least ``FILL`` of the
+    card's ``n_sms`` SMs (about one wave), else the narrowest."""
+    for cols in TILE_COLS:
+        if n_batch * -(-n // cols) >= FILL * n_sms:
+            return cols
+    return TILE_COLS[-1]
+
+
+@functools.cache
+def _entry():
+    lib = _build.library("lif_update")
+    return lib, lib.lif_scan_f32
+
+
+@functools.cache
+def _n_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _constants(beta: float, threshold: float, v_reset: float):
+    return tuple(ctypes.c_float(np.float32(x)) for x in
+                 (beta, threshold, v_reset))
+
+
 def _launch(cur, v0, v_out, spikes, n_batch, n_steps, n, beta, threshold,
             v_reset) -> None:
-    lib = _build.library("lif_update")
-    err = lib.lif_scan_f32(
-        cur.data_ptr(), None if v0 is None else v0.data_ptr(),
-        None if v_out is None else v_out.data_ptr(), spikes.data_ptr(),
-        n_batch, n_steps, n, float(np.float32(beta)),
-        float(np.float32(threshold)), float(np.float32(v_reset)),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    lib, fn = _entry()
+    dev = cur.device.index
+    err = fn(cur.data_ptr(), None if v0 is None else v0.data_ptr(),
+             None if v_out is None else v_out.data_ptr(), spikes.data_ptr(),
+             n_batch, n_steps, n, tile_cols(n_batch, n, _n_sms(dev)),
+             *_constants(beta, threshold, v_reset),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.launches["lif_update"] += 1
     _build.check(lib, err, "lif_update")
 

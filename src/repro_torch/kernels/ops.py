@@ -3,6 +3,17 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version (``ref``).  Nothing falls
 back from one to the other.
+
+Event lists (``events`` i32 ``[R, E]``, pad ``-1``): both routes add every
+entry ``>= 0`` in list order, wherever a ``-1`` sits, as the reference
+does.  The CPU route takes any such list.  The CUDA route takes a list
+whose valid entries ascend strictly along each row, ``-1`` s anywhere: it
+compacts each row on the device first and raises ``ValueError`` for a row
+that does not ascend (its kernel adds in ascending source chunks, so it
+cannot keep an unsorted row's order), reading one flag back to the host.
+``compacted=True`` promises the kernel's own layout, ascending sources then
+``-1`` padding (what :func:`events_from_spikes` writes), and skips the
+compaction, the check and their read.
 """
 
 from __future__ import annotations
@@ -25,21 +36,25 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def event_synapse(events: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def event_synapse(events: torch.Tensor, weights: torch.Tensor, *,
+                  compacted: bool = False) -> torch.Tensor:
     """events i32 [R, E] (pad -1), weights f32 [n_src, n_dest] ->
     currents f32 [R, n_dest]."""
     if _on_cuda(events):
-        return _es.event_synapse_cuda(events, weights)
+        return _es.event_synapse_cuda(events, weights, compacted=compacted)
     return _es.event_synapse_plain(events, weights)
 
 
 def event_synapse_packed(events: torch.Tensor, packed_w: torch.Tensor,
-                         scale, *, bits: int) -> torch.Tensor:
+                         scale, *, bits: int,
+                         compacted: bool = False) -> torch.Tensor:
     """Packed-operand twin of :func:`event_synapse`: packed_w i8
-    [n_src, n_dest * bits / 8] sign-magnitude lanes, scale f32."""
+    [n_src, n_dest * bits / 8] sign-magnitude lanes, scale f32 (a host
+    number, or one value on the events' device)."""
     bits = check_bits(bits)
     if _on_cuda(events):
-        return _es.event_synapse_packed_cuda(events, packed_w, scale, bits)
+        return _es.event_synapse_packed_cuda(events, packed_w, scale, bits,
+                                             compacted=compacted)
     return _es.event_synapse_packed_plain(events, packed_w, scale, bits)
 
 

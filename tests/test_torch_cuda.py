@@ -119,12 +119,13 @@ def _route_pair(route, rng, n_src, n_dest, device):
     pack_signmag (n_dest cut to a whole number of codes a byte)."""
     if route == "dense":
         w = _t(rng.normal(size=(n_src, n_dest)).astype(np.float32)).to(device)
-        return (lambda ev: es.event_synapse_cuda(ev, w),
+        return (lambda ev, **kw: es.event_synapse_cuda(ev, w, **kw),
                 lambda ev: es.event_synapse_plain(ev, w))
     bits = int(route[len("packed"):])
     nd = max(n_dest - n_dest % (8 // bits), 8 // bits)
     pk = _t(pack_signmag(_codes(rng, n_src, nd, bits), bits)).to(device)
-    return (lambda ev: es.event_synapse_packed_cuda(ev, pk, 0.013, bits),
+    return (lambda ev, **kw: es.event_synapse_packed_cuda(ev, pk, 0.013, bits,
+                                                          **kw),
             lambda ev: es.event_synapse_packed_plain(ev, pk, 0.013, bits))
 
 
@@ -143,6 +144,108 @@ def test_cuda_event_synapse_edge_lists(card, pattern, n_dest, route):
     kernel, plain = _route_pair(route, rng, sp.shape[1], n_dest, card)
     ev = ops.events_from_spikes(_t(sp).to(card), sp.shape[1])
     assert torch.equal(kernel(ev), plain(ev))
+
+
+def _gappy(ev: np.ndarray, rng) -> np.ndarray:
+    """A compacted list ``[R, E]`` spread to ``[R, 2E]`` with a -1 after
+    every entry and about a tenth of the entries masked to -1, so that
+    every row with events has interior -1s; the valid entries still
+    ascend."""
+    wide = np.full((ev.shape[0], 2 * ev.shape[1]), -1, np.int32)
+    wide[:, ::2] = ev
+    wide[rng.random(wide.shape) < 0.1] = -1
+    return wide
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("n_src,n_dest", [(700, 130), (4200, 1000),
+                                          (777, 7)])
+def test_cuda_event_synapse_interior_padding(card, route, n_src, n_dest):
+    """Lists with interior -1s and all -1 rows, through the public ops
+    (compacted on the card, then the kernel): bit for bit the plain
+    version, which adds every valid entry in list order, and the kernel on
+    the compacted list; a scale handed as a CUDA tensor reads the same."""
+    rng = np.random.default_rng(n_src + n_dest)
+    sp = (rng.random((70, n_src)) < 0.2).astype(np.float32)
+    sp[[0, 33]] = 0
+    ev = ops.events_from_spikes(_t(sp).to(card), n_src).cpu().numpy()
+    wide = _t(_gappy(ev, rng)).to(card)
+    kernel, plain = _route_pair(route, rng, n_src, n_dest, card)
+    got = kernel(wide)
+    assert torch.equal(got, plain(wide))
+    assert torch.equal(got, kernel(es.compact_events(wide), compacted=True))
+    if route != "dense":
+        bits = int(route[len("packed"):])
+        nd = max(n_dest - n_dest % (8 // bits), 8 // bits)
+        pk = _t(pack_signmag(_codes(rng, n_src, nd, bits), bits)).to(card)
+        on_card = torch.tensor([[0.013]], device=card)
+        assert torch.equal(
+            ops.event_synapse_packed(wide, pk, on_card, bits=bits),
+            ops.event_synapse_packed(wide, pk, np.float32(0.013), bits=bits))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_cuda_event_synapse_rejects_unsorted_rows(card, route):
+    """A row whose valid entries do not ascend strictly (unsorted, or a
+    repeat), or that holds a source past the tile, raises ValueError: the
+    kernel adds in ascending source chunks and cannot keep such a row's
+    list order."""
+    kernel, _ = _route_pair(route, np.random.default_rng(2), 64, 32, card)
+    for bad in ([[1, 5, -1], [7, 3, -1]], [[2, 2, -1]], [[4, -1, 0]]):
+        with pytest.raises(ValueError, match="ascending"):
+            kernel(torch.tensor(bad, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="n_src"):
+        kernel(torch.tensor([[3, 64]], dtype=torch.int32, device=card))
+
+
+def _random_model(sizes, bits, device, packed_ops, seed):
+    """A PackedModel of the layer sizes made straight from seeded
+    ``bits``-bit codes, without map_model: each layer's tile is
+    ``fl32(q * scale)``, f32 (``packed_ops=False``) or packed codes with the
+    scale on the card and on the host, padded as pack_model pads."""
+    rng = np.random.default_rng(seed)
+    layers = []
+    qmax = 2 ** (bits - 1) - 1
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        n_pad = br._pad_dest(b, br.DEFAULT_BLOCK_D)
+        n_pad = -(-n_pad // (8 // bits)) * (8 // bits)
+        q = np.zeros((a, n_pad), np.int8)
+        q[:, :b] = rng.integers(-qmax, qmax + 1, (a, b))
+        scale = np.float32(3.0 / (qmax * np.sqrt(a)))
+        layer = br.PackedLayer(rounds=[], n_src=a, n_dest=b, n_dest_pad=n_pad,
+                               bits=bits)
+        if packed_ops:
+            layer.w_packed = _t(pack_signmag(q, bits)).to(device)
+            layer.scale = torch.tensor([[scale]], device=device)
+            layer.scale_host = scale
+        else:
+            layer.w_fused = _t(q.astype(np.float32) * scale).to(device)
+        layers.append(layer)
+    return br.PackedModel(layers=layers, lif=LIFParams(beta=0.9,
+                                                       threshold=1.0),
+                          device=torch.device(device))
+
+
+@pytest.mark.parametrize("sizes,bits", [
+    ((32768, 1000, 500, 200, 100, 10), 8),   # CIFAR10-DVS, native width
+    ((2312, 200, 100, 40, 10), 4),           # N-MNIST at 4 bits
+])
+def test_cuda_forward_is_sync_free(card, sizes, bits):
+    """The engine's forward, dense and packed, reads nothing from the
+    card: it runs under ``set_sync_debug_mode("error")``, which raises on
+    any operation that waits for the device, and both routes give the same
+    spikes."""
+    rng = np.random.default_rng(bits)
+    x = _t((rng.random((8, 16, sizes[0])) < 0.1).astype(np.float32)).to(card)
+    models = [_random_model(sizes, bits, card, p, seed=bits)
+              for p in (False, True)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [br._forward_impl(m, x, None) for m in models]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -211,6 +314,47 @@ def test_cuda_lif_matches_plain(card):
     p = LIFParams(beta=0.85, threshold=0.7, v_reset=0.1)
     assert torch.equal(lu.lif_scan_cuda(cur, p), lu.lif_scan_plain(cur, p))
     v, i = cur[:, 0].contiguous(), cur[:, 1].contiguous()
+    got = lu.lif_update_cuda(v, i, beta=0.85, threshold=0.7, v_reset=0.1)
+    want = lu.lif_update_plain(v, i, 0.85, 0.7, 0.1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+LIF_SHAPES = [
+    (8, 16, 1024), (8, 32, 1024), (8, 16, 512), (8, 16, 200),
+    (8, 16, 100), (8, 16, 10),           # the engine's layers and buckets
+    (8, 16, 301), (5, 33, 301), (2, 100, 10),   # rows not 16-byte multiples
+    (3, 1, 1024), (4, 33, 1024), (4, 100, 1024), (2, 100, 200),  # T chunks
+    (32, 25, 1024), (1, 7, 1), (130, 3, 64),
+]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", LIF_SHAPES)
+def test_cuda_lif_scan_matches_plain_at_shapes(card, shape, offset):
+    """The redesigned LIF kernel, bit for bit the plain version at the
+    engine's shapes, at rows TMA cannot take (n = 10, 301), at T = 1 and T
+    past one 32-step chunk (33, 100), and (offset 1) from a base that is
+    not 16-byte aligned, which takes the plain-row kernel at every n."""
+    rng = np.random.default_rng(sum(shape))
+    n = int(np.prod(shape))
+    buf = torch.empty(n + offset, device=card)
+    cur = buf[offset:].view(shape)
+    cur.copy_(_t(rng.normal(0.35, 0.6, shape).astype(np.float32)))
+    p = LIFParams(beta=0.85, threshold=0.7, v_reset=0.1)
+    got = lu.lif_scan_cuda(cur, p)
+    assert torch.equal(got, lu.lif_scan_plain(cur, p))
+    if got.numel() >= 100:
+        assert 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("b,n", [(8, 1024), (8, 512), (8, 200), (8, 10),
+                                 (5, 301), (1, 1), (40, 512)])
+def test_cuda_lif_update_single_step_matches_plain(card, b, n):
+    """The single clock edge (T = 1, v0 read, v_out written): v' and the
+    spikes bit for bit the plain version's."""
+    rng = np.random.default_rng(b * n)
+    v = _t(rng.normal(0.5, 0.6, (b, n)).astype(np.float32)).to(card)
+    i = _t(rng.normal(0.3, 0.6, (b, n)).astype(np.float32)).to(card)
     got = lu.lif_update_cuda(v, i, beta=0.85, threshold=0.7, v_reset=0.1)
     want = lu.lif_update_plain(v, i, 0.85, 0.7, 0.1)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

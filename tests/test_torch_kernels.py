@@ -117,6 +117,167 @@ def test_events_from_spikes_rows_ascending_valid_prefix(seed, max_ev):
                                                   max_ev)))
 
 
+# --------------------------------------------- event lists in any layout
+
+def _lists(layout, rng, n_rows, n_src, width):
+    """Event lists ``[n_rows, width]`` in a layout the reference takes:
+    ``interior`` (ascending sources with -1 between and around them),
+    ``unsorted`` (sources in random order, repeats allowed, -1 anywhere) or
+    ``all_padding`` (every row -1); row 0 is all -1 in every layout, and
+    row 1 is the list ``[3, -1, 5, -1, ...]``."""
+    ev = np.full((n_rows, width), -1, np.int32)
+    if layout != "all_padding":
+        for r in range(2, n_rows):
+            k = int(rng.integers(1, width // 2 + 1))
+            pos = np.sort(rng.choice(width, k, replace=False))
+            if layout == "interior":
+                src = np.sort(rng.choice(n_src, k, replace=False))
+            else:
+                src = rng.integers(0, n_src, k)
+            ev[r, pos] = src
+        ev[1, [0, 2]] = (3, 5)
+    return ev
+
+
+def _list_order_sum(ev, w):
+    """numpy: each row's valid entries, one float32 add each in list
+    order."""
+    out = np.zeros((ev.shape[0], w.shape[1]), np.float32)
+    for r, row in enumerate(ev):
+        for s in row:
+            if s >= 0:
+                out[r] += w[s]
+    return out
+
+
+@pytest.mark.parametrize("layout", ["interior", "unsorted", "all_padding"])
+def test_event_synapse_any_layout_matches_reference(layout):
+    """The dense plain version adds every entry >= 0 in list order,
+    wherever a -1 sits, as the reference does: bit for bit against a numpy
+    sequential float32 sum in list order, and within the reference suite's
+    atol 1e-5 of ``repro.kernels.ref.event_synapse_ref`` (a reduction in
+    another order; the Pallas dense kernel cannot trace on this JAX)."""
+    rng = np.random.default_rng(21)
+    w = rng.normal(size=(40, 96)).astype(np.float32)
+    ev = _lists(layout, rng, 9, 40, 12)
+    out = ops.event_synapse(_t(ev), _t(w)).numpy()
+    np.testing.assert_array_equal(out, _list_order_sum(ev, w))
+    np.testing.assert_allclose(
+        out, np.asarray(ref_ref.event_synapse_ref(jnp.asarray(ev),
+                                                  jnp.asarray(w))),
+        atol=1e-5)
+    if layout != "all_padding":
+        np.testing.assert_array_equal(out[1], w[3] + w[5])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("layout", ["interior", "unsorted", "all_padding"])
+def test_event_synapse_packed_any_layout_matches_pallas(layout, bits):
+    """The packed plain version on lists with interior -1s, all -1 rows
+    and unsorted rows equals the reference's Pallas
+    ``event_synapse_packed`` in interpret mode bit for bit."""
+    rng = np.random.default_rng(30 + bits)
+    q = _codes(rng, 40, 128, bits)
+    packed = pack_signmag(q, bits)
+    scale = np.float32(0.021)
+    ev = _lists(layout, rng, 9, 40, 12)
+    out = ops.event_synapse_packed(_t(ev), _t(packed), scale, bits=bits)
+    want = ref_ops.event_synapse_packed(jnp.asarray(ev), jnp.asarray(packed),
+                                        scale, bits=bits)
+    assert torch.equal(out, _t(np.array(want)))
+    np.testing.assert_array_equal(
+        out.numpy(), _list_order_sum(ev, q.astype(np.float32) * scale))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_compact_events_keeps_list_order(seed):
+    """The CUDA launchers' compaction: each row's valid entries to the
+    front in list order, -1 after them, as a view with contiguous rows;
+    the kernel's sum over it equals the plain sum over the original list
+    bit for bit."""
+    rng = np.random.default_rng(seed)
+    ev = _lists("interior", rng, 12, 300, 40)
+    got = es.compact_events(_t(ev))
+    assert got.shape == ev.shape and got.stride(1) == 1
+    for row, want in zip(got.numpy(), ev):
+        valid = want[want >= 0]
+        np.testing.assert_array_equal(row[:valid.size], valid)
+        assert (row[valid.size:] == -1).all()
+    w = _t(rng.normal(size=(300, 64)).astype(np.float32))
+    assert torch.equal(es.event_synapse_plain(got, w),
+                       es.event_synapse_plain(_t(ev), w))
+
+
+def test_kernel_events_rejects_lists_the_kernel_cannot_take():
+    """What the CUDA launchers hand the kernel: interior -1s compacted
+    away, ``compacted=True`` passed through untouched, and a row that does
+    not ascend strictly (unsorted, or a repeat) or holds a source past the
+    tile refused with ValueError naming the contract."""
+    ev = _t(np.array([[3, -1, 5, -1], [-1, -1, -1, 7], [-1] * 4], np.int32))
+    got = es._kernel_events(ev, 8, compacted=False)
+    np.testing.assert_array_equal(
+        got.numpy(), [[3, 5, -1, -1], [7, -1, -1, -1], [-1] * 4])
+    assert es._kernel_events(ev, 8, compacted=True) is ev
+    for bad in ([[5, 3, -1]], [[2, 2, -1]], [[1, -1, 0]]):
+        with pytest.raises(ValueError, match="ascending"):
+            es._kernel_events(_t(np.array(bad, np.int32)), 8, False)
+    with pytest.raises(ValueError, match="n_src"):
+        es._kernel_events(_t(np.array([[1, 8]], np.int32)), 8, False)
+
+
+def test_scale_arg_reads_no_device():
+    """The packed launcher takes a host number by value and a CPU tensor
+    read on the host; only a CUDA tensor goes to the kernel by pointer."""
+    for scale in (0.013, np.float32(0.013), torch.tensor([[0.013]])):
+        value, on_device = es._scale_arg(scale, torch.device("cpu"))
+        assert on_device is None and value == float(np.float32(0.013))
+
+
+def test_forward_hands_the_packed_launcher_a_host_scale(monkeypatch):
+    """The engine's forward gives ``ops.event_synapse_packed`` each layer's
+    scale as a host float32 (never a tensor, which the CUDA launcher would
+    have to read back from the card) and its compacted MEM_E lists with
+    ``compacted=True``; the dense route gets ``compacted=True`` too, and
+    both routes give the same spikes."""
+    from repro_torch.core.accelerator import map_model
+    from repro_torch.core.energy import AcceleratorSpec
+    from repro_torch.engine import batched_run as br
+
+    rng = np.random.default_rng(5)
+    sizes = (48, 32, 10)
+    ws = [rng.normal(0, 1.2 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    mapped = map_model(ws, AcceleratorSpec("small", n_cores=2, n_engines=8,
+                                           n_caps=16,
+                                           weight_mem_bytes=64 * 1024),
+                       quant_bits=4)
+    x = _t((rng.random((2, 6, sizes[0])) < 0.4).astype(np.float32))
+    seen = []
+    real_packed, real_dense = ops.event_synapse_packed, ops.event_synapse
+
+    def packed_spy(events, packed_w, scale, *, bits, compacted=False):
+        seen.append(("packed", type(scale), compacted))
+        return real_packed(events, packed_w, scale, bits=bits,
+                           compacted=compacted)
+
+    def dense_spy(events, weights, *, compacted=False):
+        seen.append(("dense", None, compacted))
+        return real_dense(events, weights, compacted=compacted)
+
+    monkeypatch.setattr(ops, "event_synapse_packed", packed_spy)
+    monkeypatch.setattr(ops, "event_synapse", dense_spy)
+    model = mapped.pack(packed_ops=True, device="cpu")
+    for layer in model.layers:
+        assert isinstance(layer.scale_host, np.float32)
+        assert layer.scale_host == layer.scale.item()
+    got = br._forward_impl(model, x, None)
+    want = br._forward_impl(mapped.pack(packed_ops=False, device="cpu"), x,
+                            None)
+    assert seen == [("packed", np.float32, True)] * 2 + \
+        [("dense", None, True)] * 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # ----------------------------------------------------- event_synapse_packed
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -213,6 +374,18 @@ def test_lif_scan_matches_oracle(shape):
         want = lif_rollout_np(cur[b], RefLIF(beta=0.85, threshold=0.7,
                                              v_reset=0.1))
         np.testing.assert_array_equal(got[b], want)
+
+
+@pytest.mark.parametrize("b,n,cols", [
+    (8, 1024, 64), (8, 512, 32), (8, 200, 32), (8, 100, 32), (8, 10, 32),
+    (4, 1024, 32), (32, 1024, 128), (16, 1024, 128), (1, 1, 32),
+])
+def test_lif_tile_fills_the_card(b, n, cols):
+    """The LIF kernel's column tile on a 132-SM H100: the widest of 128, 64
+    and 32 neurons whose grid of ``b * ceil(n / cols)`` blocks covers at
+    least 7/8 of the SMs, else the narrowest (the engine's largest buckets
+    at n = 1024 take 64 columns: 128 blocks, against 32 before)."""
+    assert lu.tile_cols(b, n, 132) == cols
 
 
 def test_ref_names_are_the_plain_versions():
