@@ -37,6 +37,15 @@ Phases, one line each:
                instance reproducible, and the flight recorder's spans
   5. nmnist4   the N-MNIST MLP at 4 bits on Accel_1 through the packed
                kernel, bit-exact against the numpy oracle ``run``
+  6. socket    the wire front end: a SpikeSocketServer on 127.0.0.1 with
+               two tenants on the card, the CIFAR10-DVS MLP (dense route,
+               default) and the 4-bit N-MNIST MLP, driven by SpikeClients
+               over loopback: rate-map requests (one as a v1 frame), a
+               bad-shape and an overlong request, a corrupt connection, an
+               ADMIN hot-swap of the CIFAR tenant to its packed route,
+               ADMIN list / metrics / trace; every result bit-exact against
+               run_bucketed or the oracle, all three serving kernels
+               launched in the phase
 
 then the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -51,6 +60,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -674,6 +684,237 @@ def phase_stream(dense, streams_of, policy, calib) -> dict:
                 spans=",".join(dict.fromkeys(kinds)))
 
 
+class CountingSocket:
+    """A client socket that counts the bytes it sends and receives."""
+
+    def __init__(self, sock):
+        self.sock, self.sent, self.received = sock, 0, 0
+
+    def sendall(self, data) -> None:
+        self.sock.sendall(data)
+        self.sent += len(data)
+
+    def recv(self, n: int) -> bytes:
+        data = self.sock.recv(n)
+        self.received += len(data)
+        return data
+
+    def __getattr__(self, name):
+        return getattr(self.sock, name)
+
+
+def socket_client(host: str, port: int, frames: list,
+                  timeout: float) -> dict:
+    """The socket phase's client: one thread sends the pre-encoded
+    ``frames`` (request ids 0, 1, ... in order) while the calling thread
+    reads the answers, each stamped on the host clock.  Returns the
+    answers, the stamps, the wall seconds and the byte counts."""
+    from repro_torch.launch.socket_serve import SpikeClient
+    cli = SpikeClient(host, port, timeout=timeout)
+    cli.sock = CountingSocket(cli.sock)
+    cli._next_id = len(frames)
+    sent_at, answered_at, failed = {}, {}, []
+
+    def send_all():
+        try:
+            for req_id, frame in enumerate(frames):
+                sent_at[req_id] = time.perf_counter()
+                cli.sock.sendall(frame)
+        except OSError as e:
+            failed.append(e)
+
+    sender = threading.Thread(target=send_all, name="socket-sender")
+    t0 = time.perf_counter()
+    sender.start()
+    try:
+        while len(answered_at) < len(frames) and not failed:
+            cli._pump()
+            now = time.perf_counter()
+            for answers in (cli.results, cli.rejections, cli.admin_replies):
+                for req_id in answers:
+                    answered_at.setdefault(req_id, now)
+        wall = time.perf_counter() - t0
+    finally:
+        sender.join(timeout)
+        cli.close()
+    require(not failed and not sender.is_alive(),
+            f"socket sender finished: {failed}")
+    return dict(results=cli.results, rejections=cli.rejections,
+                admin=cli.admin_replies, sent_at=sent_at,
+                answered_at=answered_at, wall=wall,
+                bytes_sent=cli.sock.sent, bytes_received=cli.sock.received)
+
+
+def phase_socket(dense, packed, mapped4, packed4, policy, cfgs) -> dict:
+    """The wire front end at full width: a SpikeSocketServer on loopback
+    with the CIFAR10-DVS MLP (dense route, the default tenant ``cifar``)
+    and the 4-bit N-MNIST MLP (``nmnist4``) on the card, every bucket
+    warmed first; its loop runs on serving_thread, which raises a fault
+    of the loop here.  A bad-shape and an overlong request on a connection
+    of their own must be rejected, and a corrupt connection dropped alone;
+    then, counted, through socket_client: 32 CIFAR requests (the first
+    a v1 frame), 4 N-MNIST requests, an ADMIN swap of ``cifar`` to the
+    packed route of the same weights, 8 more CIFAR requests and ADMIN
+    list / metrics / trace.  Best-effort slack."""
+    from repro_torch.core.accelerator import run
+    from repro_torch.engine import (METRIC_KEYS, FlightRecorder,
+                                    ModelRegistry, run_bucketed)
+    from repro_torch.engine import ingest
+    from repro_torch.kernels import _build
+    from repro_torch.launch.socket_serve import (SpikeClient,
+                                                 SpikeSocketServer,
+                                                 serving_thread)
+
+    cifar_cfg, nmnist_cfg = cfgs
+    rng = np.random.default_rng(SEED + 9)
+    cifar = make_requests(rng, cifar_cfg, 32)
+    nmnist = make_requests(rng, nmnist_cfg, 4)
+    post = make_requests(rng, cifar_cfg, 8)
+    # warm every bucket of every route the phase serves: first calls of a
+    # shape make its input buffer and tensor maps
+    for model, cfg in ((dense, cifar_cfg), (packed, cifar_cfg),
+                       (packed4, nmnist_cfg)):
+        warm = rate_map_streams(rng, cfg, [16] * 12 + [32] * 12)
+        run_bucketed(model, warm, policy=policy, with_stats=False)
+
+    # the counted traffic, encoded here; request ids follow the list
+    frames: list[bytes] = []
+
+    def add(encode, *args, **kw) -> int:
+        frames.append(encode(len(frames), *args, **kw))
+        return len(frames) - 1
+
+    pre_ids = ([add(ingest.encode_request, cifar[0], version=1)]
+               + [add(ingest.encode_request, s, model="cifar")
+                  for s in cifar[1:]])
+    nmnist_ids = [add(ingest.encode_request, s, model="nmnist4")
+                  for s in nmnist]
+    swap_id = add(ingest.encode_admin, {"op": "swap", "model": "cifar"})
+    post_ids = [add(ingest.encode_request, s, model="cifar") for s in post]
+    list_id = add(ingest.encode_admin, {"op": "list"})
+    metrics_id = add(ingest.encode_admin, {"op": "metrics"})
+    trace_id = add(ingest.encode_admin, {"op": "trace", "last": True})
+
+    registry = ModelRegistry(device=dense.device)
+    registry.register("cifar", dense, policy=policy)
+    registry.register("nmnist4", packed4, policy=policy)
+    tracer = FlightRecorder(keep_completed=256)
+    srv = SpikeSocketServer(registry, model_factory=lambda spec: packed,
+                            tracer=tracer)
+    host, port = srv.address
+    n_in = cifar_cfg.n_in
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with serving_thread(srv):
+        rej = SpikeClient(host, port, timeout=120)
+        bad_shape = rej.send(np.zeros((8, n_in - 1), np.float32),
+                             model="cifar")
+        too_long = rej.send(
+            np.zeros((srv.max_request_steps + 1, n_in), np.uint8),
+            model="cifar")
+        rej.recv_all()
+        corrupt = SpikeClient(host, port, timeout=120)
+        corrupt.sock.sendall(b"XX" + b"\x00" * 30)
+        dropped = corrupt.sock.recv(1 << 10) == b""
+        corrupt.close()
+        # the rejected requests' connection stays open beside the counted
+        # one: the corrupt connection is dropped alone
+        got = socket_client(host, port, frames, 120.0)
+        rej.close()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    results, admin = got["results"], got["admin"]
+
+    require(dropped, "corrupt connection dropped")
+    require("bad_shape" in rej.rejections.get(bad_shape, ""),
+            f"bad-shape request rejected: {rej.rejections}")
+    require("overlong" in rej.rejections.get(too_long, ""),
+            f"overlong request rejected: {rej.rejections}")
+    require(not rej.results and not got["rejections"],
+            f"socket rejections {got['rejections']}, results {rej.results}")
+    answered = [set(results), set(got["rejections"]), set(admin)]
+    require(sum(map(len, answered)) == len(frames)
+            and set().union(*answered) == set(range(len(frames))),
+            "every socket request has exactly one answer")
+    require(all(counts[k] > 0 for k in ("event_synapse",
+                                         "event_synapse_packed",
+                                         "lif_update")),
+            f"socket launches {counts}")
+    closed = run_bucketed(dense, cifar + post, policy=policy,
+                          with_stats=False)
+    cifar_ids = pre_ids + post_ids
+    require(all(np.array_equal(results[r], c.out_spikes)
+                for r, c in zip(cifar_ids, closed)),
+            "socket CIFAR10-DVS results equal run_bucketed, both routes")
+    require(all(np.array_equal(results[r], run(mapped4, s).out_spikes)
+                for r, s in zip(nmnist_ids, nmnist)),
+            "socket N-MNIST results equal the oracle")
+    swap = admin[swap_id]
+    require(swap == {"ok": True, "model": "cifar", "generation": 2},
+            f"swap reply {swap}")
+    lst = admin[list_id]
+    require(lst.get("models") == {"cifar": 2, "nmnist4": 1},
+            f"list reply {lst}")
+    met = admin[metrics_id]
+    require(met.get("ok") and set(met["metrics"]) == set(METRIC_KEYS),
+            f"ADMIN metrics reply {sorted(met)}")
+    trc = admin[trace_id]
+    kinds = [sp["kind"] for sp in trc.get("trace", {}).get("spans", [])]
+    require(trc.get("ok") and "admit" in kinds and "dispatch" in kinds,
+            f"ADMIN trace spans {kinds}")
+    snap = srv.server.metrics.snapshot()
+    n_served = len(cifar_ids) + len(nmnist_ids)
+    require(snap["hot_swaps"] == 1 and snap["completed"] == n_served,
+            f"hot_swaps {snap['hot_swaps']}, completed {snap['completed']}")
+
+    # where a CIFAR request's time goes, host clock: the decode of its
+    # frame (timed here on the same bytes: FrameDecoder over 64 KiB chunks,
+    # then decode_request); from its trace, the wait in the queue and the
+    # engine call of its bucket (the dispatch span), which splits into the
+    # padding (pad span), run_batched (the telemetry record's seconds:
+    # upload, forward, download) and the rest of execute_plan
+    decode_s = []
+    for r in cifar_ids:
+        t1 = time.perf_counter()
+        dec = ingest.FrameDecoder()
+        for off in range(0, len(frames[r]), 1 << 16):
+            for f in dec.feed(frames[r][off:off + (1 << 16)]):
+                ingest.decode_request(f.payload, f.version)
+        decode_s.append(time.perf_counter() - t1)
+    run_s = {rec["seq"]: rec["seconds"] for rec in srv.server.telemetry}
+    split = {"queue": [], "pad": [], "dispatch": [], "run_batched": []}
+    for tr in tracer.completed:
+        if tr.model != "cifar":
+            continue
+        for sp in tr.spans:
+            if sp.kind in split:
+                split[sp.kind].append(sp.t1 - sp.t0)
+            if sp.kind == "dispatch":
+                split["run_batched"].append(run_s[sp.attrs["seq"]])
+    lat = np.asarray([got["answered_at"][r] - got["sent_at"][r]
+                      for r in cifar_ids + nmnist_ids])
+    ms = lambda xs: round(float(np.mean(xs)) * 1e3, 4)  # noqa: E731
+    pct = lambda q: round(float(np.percentile(lat, q)) * 1e3, 3)  # noqa: E731
+    return dict(requests=n_served + 2, completed=snap["completed"],
+                rejected=2, wall_s=round(got["wall"], 4),
+                requests_per_s=round(snap["completed"] / got["wall"], 2),
+                client_p50_ms=pct(50), client_p99_ms=pct(99),
+                server_p50_ms=round(snap["recent_p50_latency_s"] * 1e3, 3),
+                server_p99_ms=round(snap["recent_p99_latency_s"] * 1e3, 3),
+                fill=round(snap["bucket_fill_ratio"], 4),
+                dispatches=snap["dispatches"],
+                cifar_decode_ms=ms(decode_s),
+                cifar_queue_ms=ms(split["queue"]),
+                cifar_engine_ms=ms(split["dispatch"]),
+                cifar_pad_ms=ms(split["pad"]),
+                cifar_run_batched_ms=ms(split["run_batched"]),
+                bytes_sent=got["bytes_sent"],
+                bytes_received=got["bytes_received"],
+                launches=json.dumps(counts), hot_swaps=snap["hot_swaps"],
+                generation=swap["generation"], dropped_alone=True,
+                results_equal=True)
+
+
 def phase_breakdown(packed, streams, plan) -> dict:
     """Where one engine call of ``plan`` goes: each stage of run_batched
     timed on the host clock around synchronised work, and the device's busy
@@ -861,7 +1102,8 @@ def main() -> int:
     gain4 = pick_gain(ws4, x4, NMNIST_SNN.lif)
     mapped4 = map_model([w * np.float32(gain4) for w in ws4], ACCEL_1,
                         lif=NMNIST_SNN.lif, quant_bits=4)
-    res4, counts4, _ = drive(mapped4.pack(device=dev), streams4, policy)
+    packed4 = mapped4.pack(device=dev)
+    res4, counts4, _ = drive(packed4, streams4, policy)
     require(counts4["event_synapse_packed"] > 0 and counts4["lif_update"] > 0,
             f"4-bit launches {counts4}")
     for r, s in zip(res4, streams4):
@@ -875,11 +1117,19 @@ def main() -> int:
         out_spikes=[int(r.out_spikes.sum()) for r in res4],
         launches=json.dumps(counts4), oracle_equal=True)
 
+    # 6. socket: the wire front end serving both tenants on the card
+    sock = phase_socket(dense, packed, mapped4, packed4, policy,
+                        (CIFAR_DATA, NMNIST_DATA))
+    log("socket", **sock)
+    counts_sock = json.loads(sock["launches"])
+
     for row in kernels:
         row["launches"] = (counts_pk if row["name"] == "event_synapse_packed"
                            else counts)[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path")
+        row["socket_launches"] = counts_sock[row["name"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "socket_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))

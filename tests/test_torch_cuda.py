@@ -469,3 +469,42 @@ def test_cuda_stream_server_matches_cpu_path(card):
     for rid in rid_cpu:
         np.testing.assert_array_equal(r_gpu[rid].out_spikes,
                                       r_cpu[rid].out_spikes)
+
+
+def test_cuda_socket_round_trip_matches_cpu_path(card):
+    """The live-socket server on the card: a small MLP on the dense route,
+    hot-swapped over ADMIN to its packed route, serves every request
+    through the kernels, each result equal to the CPU path's."""
+    from repro_torch.engine import ModelRegistry
+    from repro_torch.launch.socket_serve import (SpikeClient,
+                                                 SpikeSocketServer,
+                                                 serving_thread)
+    rng = np.random.default_rng(12)
+    sizes = (96, 64, 10)
+    spec = AcceleratorSpec("small", n_cores=2, n_engines=8, n_caps=16,
+                           weight_mem_bytes=64 * 1024)
+    mapped = map_model(_pruned_mlp(rng, sizes), spec)
+    policy = BucketPolicy(batch_sizes=(2, 4), time_steps=(8, 16))
+    streams = [(rng.random((int(t), sizes[0])) < 0.3).astype(np.float32)
+               for t in rng.integers(3, 16, 12)]
+    want = run_bucketed(mapped.pack(device="cpu"), streams, policy=policy,
+                        with_stats=False)
+    registry = ModelRegistry(device=card)
+    registry.register("m", mapped.pack(device=card), policy=policy)
+    packed = mapped.pack(packed_ops=True, device=card)
+    srv = SpikeSocketServer(registry, model_factory=lambda spec: packed)
+    host, port = srv.address
+    _build.reset_launches()
+    with serving_thread(srv, max_requests=len(streams), idle_flush_s=0.05):
+        cli = SpikeClient(host, port, timeout=30)
+        ids = [cli.send(s, model="m") for s in streams[:8]]
+        swap = cli.admin({"op": "swap", "model": "m"})
+        ids += [cli.send(s, model="m") for s in streams[8:]]
+        cli.recv_all()
+        cli.close()
+    torch.cuda.synchronize()
+    assert cli.admin_replies[swap]["generation"] == 2
+    assert all(_build.launches[k] > 0 for k in
+               ("event_synapse", "event_synapse_packed", "lif_update"))
+    for req_id, r in zip(ids, want):
+        np.testing.assert_array_equal(cli.results[req_id], r.out_spikes)
