@@ -46,6 +46,22 @@ Phases, one line each:
                ADMIN list / metrics / trace; every result bit-exact against
                run_bucketed or the oracle, all three serving kernels
                launched in the phase
+  7. precision the per-layer bit-width search (search_bits, budget 0.05) on
+               the N-MNIST MLP at native width (2312 -> 200 -> 100 -> 40 ->
+               10, Accel_1, seeded, 50 % pruned) over a 25-step rate-map
+               probe; then all-8, all-4, all-2 and the searched mixed widths
+               each mapped, packed with packed_ops=True on the card and
+               serving 8 requests through run_bucketed, every request
+               bit-exact against the oracle (spikes, dispatch stats,
+               energy); one Pareto point per configuration, events/s from
+               the card, the packed kernel's launches by width
+  8. spikify   spikified_ffn at InternLM2-1.8B's FFN widths (d_model 2048,
+               d_ff 8192, a ReLU FFN, seeded weights, 16 tokens) at T = 16,
+               64 and 256 through the dense event_synapse kernel: the T = 64
+               launch (1024 rows of 8192-wide event lists) equal to the
+               plain version, the 1/sqrt(T) law and the correlation with the
+               dense FFN held, the kernel's time beside its bound and the
+               library matmul
 
 then the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -78,6 +94,10 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores, same sheet
 TF32_FLOP_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
 REPS = 200                   # launches a device or issue time is taken over
+PRECISION_BUDGET = 0.05      # the reference precision bench's budget
+SPIKIFY_WIDTHS = (2048, 8192)  # InternLM2-1.8B d_model, d_ff
+SPIKIFY_TOKENS = 16
+SPIKIFY_STEPS = (16, 64, 256)
 
 
 def log(phase: str, **fields) -> None:
@@ -915,6 +935,183 @@ def phase_socket(dense, packed, mapped4, packed4, policy, cfgs) -> dict:
                 results_equal=True)
 
 
+def phase_precision(policy, dev, card: str) -> dict:
+    """Mixed widths on one served path: ``search_bits`` on the N-MNIST MLP
+    at native width over a 25-step rate-map probe, host-timed; then the
+    all-8, all-4, all-2 and searched configurations, each mapped, packed
+    with ``packed_ops=True`` on the card and serving 8 rate-map requests
+    through ``run_bucketed`` (warm, a timed pass without stats for
+    events/s, then the counted pass with the counts at 0 just before it),
+    every request bit-exact against the oracle.  The mixed configuration's
+    counted pass is this phase's main path: it must launch the packed
+    kernel at every width it holds, and hold a width below 8."""
+    from repro_torch.configs.menage_paper import (ACCEL_1, NMNIST_DATA,
+                                                  NMNIST_SNN)
+    from repro_torch.core.accelerator import map_model, run
+    from repro_torch.core.precision import (PARETO_POINT_KEYS, agreement,
+                                            pareto_point, search_bits)
+    from repro_torch.engine import run_bucketed
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(SEED + 10)
+    lif = NMNIST_SNN.lif
+    probe = rate_map_streams(rng, NMNIST_DATA, [NMNIST_SNN.num_steps])[0]
+    streams = make_requests(rng, NMNIST_DATA, N_REQUESTS)
+    ws = pruned_mlp(np.random.default_rng(SEED + 11), NMNIST_SNN.layer_sizes)
+    gain = pick_gain(ws, torch.from_numpy(probe[None]).to(dev), lif)
+    ws = [w * np.float32(gain) for w in ws]
+    t0 = time.perf_counter()
+    search = search_bits(ws, ACCEL_1, probe, lif=lif, budget=PRECISION_BUDGET)
+    search_s = time.perf_counter() - t0
+    mixed = search.per_layer_bits
+    require(any(b < 8 for b in mixed),
+            f"search_bits kept every layer at 8 bits ({mixed}): the mixed "
+            f"path is not reached")
+    n = len(ws)
+    configs = [("w8", [8] * n), ("w4", [4] * n), ("w2", [2] * n),
+               ("mixed", mixed)]
+    n_events = int(sum(s.sum() for s in streams))
+    base, points, launches = None, [], {}
+    for label, bits in configs:
+        mapped = map_model(ws, ACCEL_1, lif=lif, quant_bits=bits)
+        require([l.bits for l in mapped.layers] == bits, f"{label} widths")
+        probe_res = run(mapped, probe)
+        base = probe_res.out_spikes if base is None else base
+        packed = mapped.pack(packed_ops=True, device=dev)
+        run_bucketed(packed, streams, policy=policy, with_stats=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_bucketed(packed, streams, policy=policy, with_stats=False)
+        torch.cuda.synchronize()
+        events_per_s = n_events / (time.perf_counter() - t0)
+        res, counts, _ = drive(packed, streams, policy)
+        by_bits = dict(_build.packed_launches_by_bits)
+        require(all(by_bits[b] > 0 for b in set(bits))
+                and counts["lif_update"] > 0,
+                f"{label} launches {counts}, by width {by_bits}")
+        for r, s in zip(res, streams):
+            require(r.per_layer_bits == bits, f"{label} per_layer_bits "
+                    f"{r.per_layer_bits}")
+            require(oracle_equal(r, run(mapped, s)),
+                    f"{label} request equals the oracle")
+        pt = pareto_point(label, bits, probe_res, mapped,
+                          agreement(probe_res.out_spikes, base),
+                          events_per_s=events_per_s)
+        require(tuple(pt) == PARETO_POINT_KEYS, "Pareto point keys")
+        points.append(pt)
+        launches[label] = dict(counts, by_bits=by_bits)
+    return dict(card=json.dumps(card), model="nmnist", accel=ACCEL_1.name,
+                sizes=list(NMNIST_SNN.layer_sizes), gain=gain,
+                budget=PRECISION_BUDGET, search_s=round(search_s, 3),
+                chosen_bits=mixed, agreement=search.agreement,
+                energy_reduction=round(search.energy_reduction, 6),
+                trials=len(search.history), requests=len(streams),
+                input_events=n_events, oracle_equal=True,
+                points=json.dumps(points),
+                launches=json.dumps(launches["mixed"]),
+                launches_by_config=json.dumps(launches))
+
+
+def phase_spikify(dev, card: str) -> tuple[dict, dict]:
+    """A transformer layer's FFN on the event kernel: ``spikified_ffn`` at
+    InternLM2-1.8B's widths (a ReLU FFN, not that model's SwiGLU: only the
+    widths are taken), seeded weights and tokens on the card, at each T of
+    SPIKIFY_STEPS with the counts at 0 before the first and read after the
+    last.  Then the T = 64 launch on its own frames (the generator
+    reseeded) against the plain version, and the fold of its currents
+    against the served result; its time, bound and the library matmul of
+    the same frames.  Returns the line's fields and the kernels-line row."""
+    from repro_torch.core.lif import rate_encode
+    from repro_torch.core.spikify import rate_scale, spikified_ffn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import event_synapse as es
+    from repro_torch.kernels import ops
+
+    d_model, d_ff = SPIKIFY_WIDTHS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    w_in = torch.randn(d_model, d_ff, generator=gen, device=dev) \
+        / float(np.sqrt(d_model))
+    w_out = torch.randn(d_ff, d_model, generator=gen, device=dev) \
+        / float(np.sqrt(d_ff))
+    x = torch.randn(SPIKIFY_TOKENS, d_model, generator=gen, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = torch.relu(x @ w_in) @ w_out
+    seeds = {t: SEED + 13 + t for t in SPIKIFY_STEPS}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = {t: spikified_ffn(torch.Generator(device=dev).manual_seed(seeds[t]),
+                             x, w_in, w_out, num_steps=t)
+            for t in SPIKIFY_STEPS}
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(counts["event_synapse"] == len(SPIKIFY_STEPS),
+            f"spikify launches {counts}")
+    err = {t: (y - want).abs().mean().item() for t, (y, _) in outs.items()}
+    corr = {t: float(np.corrcoef(y.cpu().numpy().ravel(),
+                                 want.cpu().numpy().ravel())[0, 1])
+            for t, (y, _) in outs.items()}
+    require(all(np.isfinite(y.cpu().numpy()).all()
+                and y.shape == want.shape for y, _ in outs.values()),
+            "spikify outputs finite, [tokens, d_model]")
+    lo, hi = SPIKIFY_STEPS[0], SPIKIFY_STEPS[-1]
+    require(err[hi] < 0.5 * err[lo],
+            f"mean abs error at T={hi} ({err[hi]}) below half of T={lo} "
+            f"({err[lo]})")
+    require(corr[64] > 0.9, f"correlation at T=64 {corr[64]}")
+
+    # the T = 64 launch, on its own frames, against the plain version
+    t = 64
+    rates, x_max = rate_scale(torch.relu(x @ w_in))
+    frames = rate_encode(rates, t, torch.Generator(device=dev)
+                         .manual_seed(seeds[t]))
+    spikes = frames.reshape(t * SPIKIFY_TOKENS, d_ff)
+    ev = ops.events_from_spikes(spikes, d_ff)
+    cur = ops.event_synapse(ev, w_out, compacted=True)
+    plain = es.event_synapse_plain(ev, w_out)
+    require(torch.equal(cur, plain), "spikify event_synapse equals plain")
+    acc = torch.zeros(SPIKIFY_TOKENS, d_model, device=dev)
+    for step in cur.reshape(t, SPIKIFY_TOKENS, d_model):
+        acc = acc + step
+    require(torch.equal(acc / torch.tensor(float(t), device=dev) * x_max,
+                        outs[t][0]), "spikify T=64 result equals its frames")
+    valid = ev >= 0
+    n_valid = int(valid.sum())
+    n_rows_read = int(torch.unique(ev[valid]).numel())
+    r = ev.shape[0]
+    row = dict(name="event_synapse", path="spikify", route="cuda",
+               source="src/repro_torch/kernels/csrc/event_synapse.cu",
+               replaces="src/repro/kernels/event_synapse.py:49",
+               launches=counts["event_synapse"],
+               max_abs_err=(cur - plain).abs().max().item(),
+               ms=cuda_ms(lambda: ops.event_synapse(ev, w_out,
+                                                    compacted=True)),
+               plain_ms=cuda_ms(lambda: es.event_synapse_plain(ev, w_out),
+                                reps=1),
+               library_ms=cuda_ms(lambda: torch.matmul(spikes, w_out)),
+               shape=f"events[{r},{ev.shape[1]}]x{d_ff}x{d_model}",
+               **bound(n_valid * 4 + n_rows_read * d_model * 4
+                       + r * d_model * 4, n_valid * d_model))
+    fields = dict(card=json.dumps(card), d_model=d_model, d_ff=d_ff,
+                  tokens=SPIKIFY_TOKENS, steps=list(SPIKIFY_STEPS),
+                  event_fraction=json.dumps(
+                      {t: round(float(st["event_fraction"]), 6)
+                       for t, (_, st) in outs.items()}),
+                  events=json.dumps({t: int(st["events"])
+                                     for t, (_, st) in outs.items()}),
+                  mean_abs_err=json.dumps({t: round(e, 6)
+                                           for t, e in err.items()}),
+                  corr=json.dumps({t: round(c, 6) for t, c in corr.items()}),
+                  shape=row["shape"], valid_events=n_valid,
+                  max_valid_per_row=int(valid.sum(dim=1).max()),
+                  kernel_ms=round(row["ms"], 4),
+                  bound_ms=round(row["bound_ms"], 4),
+                  bound_by=row["bound_by"],
+                  library_ms=round(row["library_ms"], 4),
+                  plain_ms=round(row["plain_ms"], 4), plain_equal=True,
+                  launches=json.dumps(counts))
+    return fields, row
+
+
 def phase_breakdown(packed, streams, plan) -> dict:
     """Where one engine call of ``plan`` goes: each stage of run_batched
     timed on the host clock around synchronised work, and the device's busy
@@ -960,14 +1157,27 @@ def phase_breakdown(packed, streams, plan) -> dict:
                 device_ms=json.dumps({k: round(v, 3) for k, v in top}))
 
 
-def same_result(a, b) -> bool:
+def same_stats(a: list, b: list) -> bool:
+    """Two per-layer lists of DispatchStats, counter for counter."""
     fields = ("cycles", "rows_touched", "engine_ops", "events",
               "sn_bytes_touched")
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(x, f), getattr(y, f))
+        and x.mem_e_peak == y.mem_e_peak for x, y in zip(a, b)
+        for f in fields)
+
+
+def same_result(a, b) -> bool:
     return (np.array_equal(a.out_spikes, b.out_spikes)
-            and len(a.stats) == len(b.stats)
-            and all(np.array_equal(getattr(x, f), getattr(y, f))
-                    and x.mem_e_peak == y.mem_e_peak
-                    for x, y in zip(a.stats, b.stats) for f in fields))
+            and same_stats(a.stats, b.stats))
+
+
+def oracle_equal(r, oracle) -> bool:
+    """A served request equal to the numpy oracle's run on it: spikes,
+    every dispatch counter, and the energy report."""
+    return (np.array_equal(r.out_spikes, oracle.out_spikes)
+            and same_stats(r.stats, oracle.per_layer_stats)
+            and r.energy() == oracle.energy)
 
 
 def drive(packed, streams, policy, telemetry=None):
@@ -1123,13 +1333,27 @@ def main() -> int:
     log("socket", **sock)
     counts_sock = json.loads(sock["launches"])
 
+    # 7. precision: searched per-layer widths served on the packed kernels
+    prec = phase_precision(policy, dev, card)
+    log("precision", **prec)
+    counts_prec = json.loads(prec["launches"])
+
+    # 8. spikify: a transformer FFN's widths on the dense event kernel
+    spk, spk_row = phase_spikify(dev, card)
+    log("spikify", **spk)
+    counts_spk = json.loads(spk["launches"])
+
     for row in kernels:
         row["launches"] = (counts_pk if row["name"] == "event_synapse_packed"
                            else counts)[row["name"]]
         row["socket_launches"] = counts_sock[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches",
-            "socket_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "on_path")
+        row["precision_launches"] = counts_prec[row["name"]]
+        row["spikify_launches"] = counts_spk[row["name"]]
+    kernels.append(spk_row)
+    keys = ("name", "path", "route", "source", "replaces", "launches",
+            "socket_launches", "precision_launches", "spikify_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))

@@ -4,9 +4,10 @@ The A-NEURON emulates discrete-time LIF clocked by the system clock in the
 per-step capacitive-discharge form ``V[t+1] = beta * V[t] + I[t]``; it fires
 ``S[t] = 1[V[t] >= theta]`` and hard-resets to ``V_reset``.
 
-Forward only: the surrogate-gradient spike function arrives with training.
-Every step runs in float32 with ``beta * v`` and ``+ I`` rounded separately,
-which is how the float32 reference and the numpy oracle compute it.
+Training uses a fast-sigmoid surrogate gradient (Eshraghian et al., the
+paper's SNNTorch reference [31]) through :class:`SpikeFn`.  Every forward
+step runs in float32 with ``beta * v`` and ``+ I`` rounded separately, which
+is how the float32 reference and the numpy oracle compute it.
 """
 
 from __future__ import annotations
@@ -32,14 +33,43 @@ def lif_constants(p: LIFParams, device) -> tuple[torch.Tensor, ...]:
                  for x in (p.beta, p.threshold, p.v_reset))
 
 
+class SpikeFn(torch.autograd.Function):
+    """Heaviside spike with fast-sigmoid surrogate gradient.
+
+    forward:  S = 1[v >= threshold]
+    backward: dS/dv ~ slope / (1 + |slope (v - threshold)|)^2, computed as
+    the reference does, ``g * (1 / (1 + |x|)^2) * slope`` with
+    ``x = slope * (v - threshold)``; no gradient for threshold or slope.
+    """
+
+    @staticmethod
+    def forward(ctx, v, threshold, slope):
+        ctx.save_for_backward(v)
+        ctx.threshold, ctx.slope = threshold, slope
+        return (v >= threshold).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        x = ctx.slope * (v - ctx.threshold)
+        surr = 1.0 / (1.0 + x.abs()) ** 2
+        return g * surr * ctx.slope, None, None
+
+
+def spike_fn(v: torch.Tensor, threshold, slope) -> torch.Tensor:
+    """``1[v >= threshold]`` in ``v``'s dtype, with the surrogate gradient
+    of :class:`SpikeFn` (``threshold`` a number or a scalar tensor)."""
+    return SpikeFn.apply(v, threshold, slope)
+
+
 def lif_step(v: torch.Tensor, current: torch.Tensor, p: LIFParams):
-    """One clock edge of the A-NEURON: integrate, fire, reset.
-    Returns ``(v_next, spikes)``."""
+    """One clock edge of the A-NEURON: integrate, fire (through
+    :func:`spike_fn`), reset.  Returns ``(v_next, spikes)``."""
     beta, threshold, v_reset = lif_constants(p, v.device)
     v_integrated = beta * v + current
-    fired = v_integrated >= threshold
-    v_next = torch.where(fired, v_reset, v_integrated)
-    return v_next, fired.to(v.dtype)
+    spikes = spike_fn(v_integrated, threshold, p.surrogate_slope)
+    v_next = torch.where(spikes > 0, v_reset, v_integrated)
+    return v_next, spikes
 
 
 def lif_rollout(currents: torch.Tensor, p: LIFParams,
@@ -55,3 +85,24 @@ def lif_rollout(currents: torch.Tensor, p: LIFParams,
         spikes.append(s)
         vtrace.append(v)
     return torch.stack(spikes), torch.stack(vtrace)
+
+
+def rate_encode(x: torch.Tensor, num_steps: int,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Rate-based spike encoding (the accelerator's supported encoding).
+
+    ``x`` in [0, 1]; returns Bernoulli spike trains ``[num_steps, *x.shape]``
+    (float32), frame ``t`` = ``uniform < x``, drawn from ``generator`` (on
+    ``x``'s device).  Its draws follow the law, not the JAX reference's
+    bits: a torch generator cannot replay a JAX key."""
+    u = torch.rand((num_steps, *x.shape), generator=generator,
+                   device=x.device)
+    return (u < x).to(torch.float32)
+
+
+def spike_count_decode(spikes: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Rate decode: spike counts over the window (used for classification).
+    The counts times the float32 reciprocal of ``num_steps``, which is how
+    the reference's compiled division by a constant computes it."""
+    one = torch.ones((), dtype=torch.float32, device=spikes.device)
+    return spikes.sum(dim=0) * (one / num_steps)

@@ -56,6 +56,52 @@ def quantize_symmetric(w: np.ndarray, bits: int = 8,
     return QuantizedTensor(q=q, scale=scale)
 
 
+def _host_f32(w) -> np.ndarray:
+    """A tensor or array as a host float32 numpy array."""
+    import torch
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().numpy()
+    return np.asarray(w, dtype=np.float32)
+
+
+def _like(value: np.ndarray, leaf):
+    """``value`` as the same kind as ``leaf``: a tensor on ``leaf``'s device
+    for a tensor, else the numpy value itself."""
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        return torch.from_numpy(np.asarray(value)).to(leaf.device)
+    return value
+
+
+def quantize_pytree(params, bits: int = 8):
+    """Quantize every >=2-D float leaf of a pytree (weight matrices, see
+    :mod:`repro_torch.core.pytree`); leave biases / scalars as they are.
+    Returns (pytree of :class:`QuantizedTensor` or raw leaf, dequantized
+    float32 pytree for execution, each leaf of its input's kind and
+    device).  Codes and scales are the host float32 ones of
+    :func:`quantize_symmetric`."""
+    from repro_torch.core.pytree import is_float_matrix, tree_map
+
+    def q_leaf(w):
+        if is_float_matrix(w):
+            return quantize_symmetric(_host_f32(w), bits=bits)
+        return w
+
+    qtree = tree_map(q_leaf, params)
+    dqtree = tree_map(
+        lambda qt, w: _like(qt.dequantize(), w)
+        if isinstance(qt, QuantizedTensor) else qt, qtree, params)
+    return qtree, dqtree
+
+
+def quantization_error(w, bits: int = 8):
+    """Largest ``|dequantize(quantize(w)) - w|``, in float32: a numpy
+    float32 for an array, a 0-d tensor on ``w``'s device for a tensor."""
+    w32 = _host_f32(w)
+    qt = quantize_symmetric(w32, bits=bits)
+    return _like(np.max(np.abs(qt.dequantize() - w32)), w)
+
+
 def check_bits(bits: int) -> int:
     """Validate a weight bit-width against the packed operand path."""
     if bits not in SUPPORTED_BITS:

@@ -60,9 +60,11 @@ SIGNATURES = {
     },
 }
 
-# Launches per kernel, bumped by each wrapper where it launches its kernel.
+# Launches per kernel, bumped by each wrapper where it launches its kernel;
+# the packed kernel's launches also by weight bit-width.
 launches = {"event_synapse": 0, "event_synapse_packed": 0, "lif_update": 0,
             "c2c_matmul": 0}
+packed_launches_by_bits = {8: 0, 4: 0, 2: 0}
 
 # nvcc's report per source (registers, shared memory, spills from -Xptxas -v)
 build_log: dict[str, str] = {}
@@ -72,8 +74,9 @@ _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, packed_launches_by_bits):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

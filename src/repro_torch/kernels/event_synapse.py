@@ -200,6 +200,7 @@ def event_synapse_packed_cuda(events: torch.Tensor, packed_w: torch.Tensor,
         None if scale_t is None else scale_t.data_ptr(), bits,
         out.data_ptr(), r, n_events, n_dest, _stream())
     _build.launches["event_synapse_packed"] += 1
+    _build.packed_launches_by_bits[bits] += 1
     _build.check(lib, err, "event_synapse_packed")
     return out
 

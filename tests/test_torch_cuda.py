@@ -508,3 +508,83 @@ def test_cuda_socket_round_trip_matches_cpu_path(card):
                ("event_synapse", "event_synapse_packed", "lif_update"))
     for req_id, r in zip(ids, want):
         np.testing.assert_array_equal(cli.results[req_id], r.out_spikes)
+
+
+# ------------------------------------- the rest of the core on the card
+
+
+@pytest.mark.parametrize("bits", [(8, 4, 2, 4), (2, 8, 4, 8), (4, 4, 2, 2)])
+def test_cuda_mixed_width_forward_bit_exact_and_sync_free(card, bits):
+    """A model mapped at per-layer widths (what search_bits returns),
+    packed with ``packed_ops=True``: one forward launches the packed
+    kernel at each layer's own width, runs under
+    ``set_sync_debug_mode("error")``, and equals the CPU path and the
+    oracle bit for bit (spikes, dispatch stats, energy)."""
+    sizes = (2312, 200, 100, 40, 10)
+    rng = np.random.default_rng(sum(bits))
+    ws = _pruned_mlp(rng, sizes, gain=2.5)
+    spec = AcceleratorSpec("mixed", n_cores=4, n_engines=10, n_caps=16,
+                           weight_mem_bytes=400 << 10)
+    m = map_model(ws, spec, quant_bits=list(bits))
+    gpu = m.pack(packed_ops=True, device=card)
+    x = (rng.random((2, 12, sizes[0])) < 0.08).astype(np.float32)
+    xt = _t(x).to(card)
+    br._forward_impl(gpu, xt, None)                    # first call warms
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = br._forward_impl(gpu, xt, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = {b: bits.count(b) for b in (8, 4, 2)}
+    assert _build.packed_launches_by_bits == want
+    cpu = br._forward_impl(m.pack(packed_ops=True, device="cpu"),
+                           _t(x), None)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(outs, cpu))
+    res = br.run_batched(gpu, x)
+    assert res.per_layer_bits == list(bits)
+    for i in range(2):
+        oracle = run(m, x[i])
+        np.testing.assert_array_equal(res.out_spikes[i], oracle.out_spikes)
+        assert res.sample_energy(i) == oracle.energy
+
+
+@pytest.mark.parametrize("n_in,n_out,t,b,p", [
+    (4096, 512, 16, 8, 0.05),     # lists 4096 wide, about 200 valid
+    (8192, 256, 8, 16, 0.01),     # 8192 wide, about 80 valid
+    (1000, 130, 5, 3, 0.3),
+])
+def test_cuda_spikified_linear_equals_plain(card, n_in, n_out, t, b, p):
+    """``spikified_linear`` on the card (one dense kernel launch over all
+    ``T * B`` rows, event lists far longer than their valid prefix) equals
+    the same arithmetic on the plain version for the same frames (the
+    generator reseeded), and the CPU path on those frames, bit for bit."""
+    from repro_torch.core.lif import rate_encode
+    from repro_torch.core.spikify import (accumulate_frames, rate_scale,
+                                          spikified_linear)
+    rng = np.random.default_rng(n_in)
+    x = np.abs(rng.normal(size=(b, n_in))).astype(np.float32)
+    x[rng.random(x.shape) > p * 4] = 0
+    xt = _t(x).to(card)
+    w = _t(rng.normal(size=(n_in, n_out)).astype(np.float32)).to(card)
+    gen = torch.Generator(device=card)
+    _build.reset_launches()
+    y, st = spikified_linear(gen.manual_seed(5), xt, w, num_steps=t)
+    torch.cuda.synchronize()
+    assert _build.launches["event_synapse"] == 1
+    rates, x_max = rate_scale(xt)
+    frames = rate_encode(rates, t, gen.manual_seed(5))
+    ev = ops.events_from_spikes(frames.reshape(t * b, n_in), n_in)
+    cur = es.event_synapse_plain(ev, w).reshape(t, b, n_out)
+    acc = torch.zeros(b, n_out, device=card)
+    for step in range(t):
+        acc = acc + cur[step]
+    steps = torch.tensor(float(t), device=card)
+    assert torch.equal(y, acc / steps * x_max)
+    assert int(st["events"]) == int((ev >= 0).sum())
+    valid = (ev >= 0).sum(dim=1)
+    assert int(valid.max()) < n_in // 2           # mostly padding
+    acc_cpu, n_cpu = accumulate_frames(frames.cpu(), w.cpu())
+    assert torch.equal(acc.cpu(), acc_cpu) and int(n_cpu) == int(st["events"])
