@@ -62,8 +62,24 @@ Phases, one line each:
                plain version, the 1/sqrt(T) law and the correlation with the
                dense FFN held, the kernel's time beside its bound and the
                library matmul
+  9. train     training on the card through train_snn_model (Table I's
+               Adam: lr 1e-3, b2 0.999, no decay or clipping), one line
+               per model: the N-MNIST MLP at native width (2312 -> 200 ->
+               100 -> 40 -> 10, batch 64, grad_shards 8, 40 steps;
+               stopped at 20 and resumed from its checkpoint, equal to the
+               uninterrupted run bit for bit; the first 3 losses against
+               the CPU path), pruned, quantized to 8 bits, mapped onto
+               Accel_1 and served on both event_synapse routes against the
+               oracle; the CIFAR10-DVS MLP at native width (33.4 M
+               parameters, batch 16, 10 steps: step 1 against the CPU
+               path, step ms, samples/s, peak device memory); the conv
+               SNN (CIFAR_CONV, batch 32, 20 steps) lowered with
+               layer_specs onto Accel_2 and served on the dense kernel
+               against the oracle; one train step of each family under
+               set_sync_debug_mode("error"); the launch counts of the
+               serving ends
 
-then the card's name and power limit, one JSON line of kernel results, and
+then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run with no
 CUDA device or outside a checkout of the repository.
@@ -1112,11 +1128,417 @@ def phase_spikify(dev, card: str) -> tuple[dict, dict]:
     return fields, row
 
 
+TRAIN_LR = 1e-3              # Table I's Adam rate (the SNNTrainConfig default)
+
+
+def _quiet(msg: str) -> None:
+    pass
+
+
+def _held_out_accuracy(counts: np.ndarray, labels: np.ndarray) -> float:
+    return float((counts.argmax(-1) == labels).mean())
+
+
+def train_nmnist(dev, card: str) -> dict:
+    """The paper's N-MNIST MLP at native width trained on the card: 40
+    steps uninterrupted, and 20 + a resume to 40 through checkpoints,
+    equal bit for bit; the first 3 losses against the CPU path from the
+    same start; then pruned 50 %, quantized to 8 bits, mapped onto Accel_1
+    and served on both event_synapse routes, every clip equal to the
+    oracle."""
+    import tempfile
+
+    from repro_torch.configs.menage_paper import (ACCEL_1, NMNIST_DATA,
+                                                  NMNIST_SNN)
+    from repro_torch.core.accelerator import map_model, run
+    from repro_torch.core.prune import prune_pytree
+    from repro_torch.core.quant import quantize_pytree
+    from repro_torch.data.events import event_batch_at, \
+        synthetic_event_dataset
+    from repro_torch.engine import (MLP_MODEL, BucketPolicy, SNNTrainConfig,
+                                    run_bucketed, train_snn_model)
+    from repro_torch.snn import snn_forward
+
+    t_start = time.perf_counter()
+    spikes, labels = synthetic_event_dataset(
+        NMNIST_DATA, 32, np.random.default_rng(SEED + 20))
+    n_test = len(labels) // 5
+    train_x, train_y = spikes[n_test:], labels[n_test:]
+
+    def train(steps, ckpt=None, device=dev):
+        tc = SNNTrainConfig(steps=steps, lr=TRAIN_LR, grad_shards=8,
+                            checkpoint_dir=ckpt, checkpoint_every=20,
+                            log_every=1000)
+        return train_snn_model(
+            MLP_MODEL, NMNIST_SNN,
+            lambda step: event_batch_at(train_x, train_y, 64, step), tc,
+            key=torch.Generator().manual_seed(SEED + 21), device=device,
+            log_fn=_quiet)
+
+    params, hist = train(40)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        train(20, ckpt)
+        resumed, hist_b = train(40, ckpt)
+    require(hist_b["loss"] == hist["loss"][20:]
+            and all(torch.equal(a, b) for a, b in zip(resumed, params)),
+            "N-MNIST resume at step 20 equals the uninterrupted run bit for "
+            "bit on the card")
+    _, cpu_hist = train(3, device="cpu")
+    require(np.allclose(hist["loss"][:3], cpu_hist["loss"], rtol=1e-4,
+                        atol=0.0),
+            f"first 3 losses {hist['loss'][:3]} equal the CPU path's "
+            f"{cpu_hist['loss']} within rtol 1e-4")
+    first, last = np.mean(hist["loss"][:5]), np.mean(hist["loss"][-5:])
+    require(np.isfinite(hist["loss"]).all() and last < first,
+            f"N-MNIST loss falls: {first} -> {last}")
+
+    pruned, _ = prune_pytree(params, 0.5)
+    _, dq = quantize_pytree(pruned)
+    test_x = torch.from_numpy(np.ascontiguousarray(
+        spikes[:n_test].swapaxes(0, 1))).to(dev)
+    counts_q = snn_forward(dq, test_x, NMNIST_SNN)[0].cpu().numpy()
+    counts_f = snn_forward(params, test_x, NMNIST_SNN)[0].cpu().numpy()
+    mapped = map_model([w.cpu().numpy() for w in dq], ACCEL_1,
+                       lif=NMNIST_SNN.lif, quant_bits=8)
+    clips = [spikes[i] for i in range(8)]
+    policy = BucketPolicy(batch_sizes=(8,), time_steps=(NMNIST_SNN.num_steps,))
+    oracles = [run(mapped, c) for c in clips]
+    hw = {}
+    for route, packed_ops in (("dense", False), ("packed", True)):
+        res = run_bucketed(mapped.pack(packed_ops=packed_ops, device=dev),
+                           clips, policy=policy)
+        require(all(oracle_equal(r, o) for r, o in zip(res, oracles)),
+                f"trained N-MNIST on the {route} route equals the oracle")
+        hw[route] = np.stack([r.out_spikes.sum(axis=0) for r in res])
+    require(np.array_equal(hw["dense"], hw["packed"]), "both routes agree")
+    return dict(card=json.dumps(card), sizes=list(NMNIST_SNN.layer_sizes),
+                params=sum(p.numel() for p in params), batch=64,
+                grad_shards=8, steps=40, lr=TRAIN_LR,
+                loss_first=round(hist["loss"][0], 6),
+                loss_last=round(hist["loss"][-1], 6),
+                acc_last=round(hist["acc"][-1], 4),
+                cpu_losses=[round(x, 6) for x in cpu_hist["loss"]],
+                card_losses=[round(x, 6) for x in hist["loss"][:3]],
+                step_ms=round(1e3 * float(np.median(hist["step_time"][1:])),
+                              3),
+                resume_bit_exact=True, sparsity=0.5, quant_bits=8,
+                accel=ACCEL_1.name,
+                test_acc_float=_held_out_accuracy(counts_f, labels[:n_test]),
+                test_acc_quant=_held_out_accuracy(counts_q, labels[:n_test]),
+                clips=len(clips),
+                hw_acc=_held_out_accuracy(hw["dense"], labels[:8]),
+                quant_acc=_held_out_accuracy(counts_q[:8], labels[:8]),
+                oracle_equal=True,
+                seconds=round(time.perf_counter() - t_start, 2))
+
+
+def train_cifar(dev, card: str) -> dict:
+    """The paper's CIFAR10-DVS MLP at the sensor's native width (33.4 M
+    parameters) trained on the card for 10 steps at batch 16; the loss,
+    accuracy and gradients of step 1 against the CPU path from the same
+    start; step time, samples/s and the peak device memory of the run.
+
+    The loss is held at the CPU twins' rtol 1e-4.  The gradients at rtol
+    1e-4 with a floor of 1e-4 max|g| per layer: the twins' floor of 1e-6
+    max|g| is for 128-input sums, and the card and the CPU order the
+    32768-input sums of layer 1 differently, a float32 error that grows
+    between the square root and the whole of the 256 times longer sum (16x
+    to 256x), and that the surrogate's slope carries into every layer's
+    gradient."""
+    from repro_torch.configs.menage_paper import CIFAR_DATA, CIFAR_SNN
+    from repro_torch.data.events import event_batch_at, \
+        synthetic_event_dataset
+    from repro_torch.device import exact_float32
+    from repro_torch.engine import MLP_MODEL, SNNTrainConfig, train_snn_model
+
+    t_start = time.perf_counter()
+    spikes, labels = synthetic_event_dataset(
+        CIFAR_DATA, 4, np.random.default_rng(SEED + 22))
+
+    def key():
+        return torch.Generator().manual_seed(SEED + 23)
+
+    def step1(device):
+        """Loss, accuracy and gradients of step 1 on ``device``, and each
+        layer's spikes and integrated membranes over that batch."""
+        sp, lb = event_batch_at(spikes, labels, 16, 0)
+        x = torch.from_numpy(np.ascontiguousarray(sp)).to(device)
+        leaves = [p.requires_grad_(True)
+                  for p in MLP_MODEL.init(key(), CIFAR_SNN, device)]
+        with exact_float32(device):
+            loss, acc = MLP_MODEL.loss(leaves, x,
+                                       torch.from_numpy(lb).to(device),
+                                       CIFAR_SNN)
+            grads = torch.autograd.grad(loss, leaves)
+            lif = CIFAR_SNN.lif
+            beta, theta, reset = (torch.full((), c, device=device)
+                                  for c in (lif.beta, lif.threshold,
+                                            lif.v_reset))
+            vs = [torch.zeros(x.shape[1], w.shape[1], device=device)
+                  for w in leaves]
+            s_l, v_l = [[] for _ in leaves], [[] for _ in leaves]
+            with torch.no_grad():        # snn_forward's order of products
+                for s_t in x:
+                    for li, w in enumerate(leaves):
+                        vi = beta * vs[li] + s_t @ w
+                        s_t = (vi >= theta).to(torch.float32)
+                        vs[li] = torch.where(s_t > 0, reset, vi)
+                        s_l[li].append(s_t)
+                        v_l[li].append(vi)
+        return (loss.item(), acc.item(), [g.cpu().numpy() for g in grads],
+                [torch.stack(a).cpu().numpy() for a in s_l],
+                [torch.stack(a).cpu().numpy() for a in v_l])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2**20   # earlier phases'
+    params, hist = train_snn_model(
+        MLP_MODEL, CIFAR_SNN,
+        lambda step: event_batch_at(spikes, labels, 16, step),
+        SNNTrainConfig(steps=10, lr=TRAIN_LR, log_every=1000), key=key(),
+        device=dev, log_fn=_quiet)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    n_params = sum(p.numel() for p in params)
+    require(n_params > 33_000_000, f"CIFAR10-DVS MLP has {n_params} params")
+    require(np.isfinite(hist["loss"]).all() and all(
+        bool(torch.isfinite(p).all()) for p in params),
+        "CIFAR10-DVS losses and parameters finite")
+    loss_c, acc_c, g_card, s_card, v_card = step1(dev)
+    loss_h, acc_h, g_cpu, s_cpu, v_cpu = step1(torch.device("cpu"))
+    flips = [int((a != b).sum()) for a, b in zip(s_card, s_cpu)]
+    v_diff = max(float(np.abs(a - b).max()) for a, b in zip(v_card, v_cpu))
+    require(loss_c == hist["loss"][0],
+            "CIFAR10-DVS step 1 repeats bit for bit on the card")
+    require(np.isclose(loss_c, loss_h, rtol=1e-4, atol=0.0)
+            and acc_c == acc_h,
+            f"CIFAR10-DVS step-1 loss {loss_c} equals the CPU path's "
+            f"{loss_h} within rtol 1e-4")
+    g_err, beyond_twin = [], []
+    for li, (a, b) in enumerate(zip(g_card, g_cpu)):
+        scale = float(np.abs(b).max())
+        beyond_twin.append(int((np.abs(a - b) > 1e-4 * np.abs(b)
+                                + 1e-6 * scale).sum()))
+        require(np.allclose(a, b, rtol=1e-4, atol=1e-4 * scale),
+                f"CIFAR10-DVS step-1 gradient of layer {li} equals the CPU "
+                f"path's within rtol 1e-4, atol 1e-4 max|g|")
+        g_err.append(float(np.abs(a - b).max()) / max(scale, 1e-30))
+    step_s = float(np.median(hist["step_time"][1:]))
+    split = train_step_breakdown(
+        MLP_MODEL, CIFAR_SNN, params,
+        event_batch_at(spikes, labels, 16, 10), dev)
+    return dict(card=json.dumps(card), sizes=list(CIFAR_SNN.layer_sizes),
+                params=n_params, batch=16, steps=10, lr=TRAIN_LR,
+                clips=len(labels),
+                losses=[round(x, 6) for x in hist["loss"]],
+                cpu_loss_1=loss_h, card_loss_1=loss_c,
+                grad_err_1=[f"{e:.3g}" for e in g_err],
+                grad_beyond_twin_floor_1=beyond_twin,
+                spike_flips_1=flips, membrane_diff_1=v_diff,
+                step_ms=round(1e3 * step_s, 3),
+                step_ms_all=[round(1e3 * x, 3) for x in hist["step_time"]],
+                samples_per_s=round(16 / step_s, 2),
+                peak_mib=round(peak_mib, 1), held_mib=round(held_mib, 1),
+                tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+                **split, seconds=round(time.perf_counter() - t_start, 2))
+
+
+def train_step_breakdown(model, cfg, params, data, dev) -> dict:
+    """Where one train step goes, as the loop runs it: the batch's upload,
+    the step (forward, backward, Adam) and the one read-back of its
+    metrics, each on the host clock around synchronised work, with the
+    device's busy time and kernel count from the profiler over the same
+    window (after one warm step from the same state)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import SNNTrainConfig, make_snn_train_step
+    from repro_torch.engine.train_loop import init_train_state
+
+    opt_cfg = SNNTrainConfig(lr=TRAIN_LR).adamw()
+    step = make_snn_train_step(model, cfg, opt_cfg)
+    state = init_train_state(None, params, opt_cfg).as_tree()
+    sp, lb = (np.ascontiguousarray(x) for x in data)
+
+    def upload():
+        return {"spikes": torch.from_numpy(sp).to(dev),
+                "labels": torch.from_numpy(lb).to(dev),
+                "lr": torch.full((), TRAIN_LR, device=dev)}
+
+    step(state, upload())
+    stages = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batch = stage("h2d", upload)
+        _, metrics = stage("step", lambda: step(state, batch))
+        stage("metrics", lambda: torch.stack(
+            [v.to(torch.float64) for v in metrics.values()]).tolist())
+    device = device_ms_by_name(prof)
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and "Memcpy" not in e.name and "Memset" not in e.name)
+    wall, busy = sum(stages.values()), sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:5]
+    return dict(split_ms=json.dumps({k: round(v, 3)
+                                     for k, v in stages.items()}),
+                split_wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
+                device_idle_share=round(1 - busy / wall, 4),
+                device_kernels=n_kernels,
+                device_ms=json.dumps({k[:40]: round(v, 3) for k, v in top}))
+
+
+def train_conv(dev, card: str) -> dict:
+    """The reference's conv configuration (CIFAR_CONV) trained on the card
+    for 20 steps at batch 32, pruned 50 %, lowered with ``layer_specs``,
+    mapped onto Accel_2 and served on the dense kernel: every clip equal
+    to the oracle."""
+    from repro_torch.configs.menage_paper import (ACCEL_2, CIFAR_CONV,
+                                                  CIFAR_CONV_DATA)
+    from repro_torch.core.accelerator import map_model, run
+    from repro_torch.core.prune import prune_pytree
+    from repro_torch.data.events import event_batch_at, \
+        synthetic_event_dataset
+    from repro_torch.engine import (CONV_MODEL, BucketPolicy, SNNTrainConfig,
+                                    run_bucketed, train_snn_model)
+    from repro_torch.snn import layer_specs
+
+    t_start = time.perf_counter()
+    spikes, labels = synthetic_event_dataset(
+        CIFAR_CONV_DATA, 16, np.random.default_rng(SEED + 24))
+    n_test = len(labels) // 5
+    params, hist = train_snn_model(
+        CONV_MODEL, CIFAR_CONV,
+        lambda step: event_batch_at(spikes[n_test:], labels[n_test:], 32,
+                                    step),
+        SNNTrainConfig(steps=20, lr=TRAIN_LR, grad_shards=8, log_every=1000),
+        key=torch.Generator().manual_seed(SEED + 25), device=dev,
+        log_fn=_quiet)
+    require(np.isfinite(hist["loss"]).all(), "conv losses finite")
+    pruned, _ = prune_pytree(params, 0.5)
+    t0 = time.perf_counter()
+    mapped = map_model(layer_specs(pruned, CIFAR_CONV), ACCEL_2,
+                       lif=CIFAR_CONV.lif)
+    map_s = time.perf_counter() - t0
+    rounds = [len(layer.rounds) for layer in mapped.layers]
+    require(max(rounds) > 1, f"a conv layer maps in more than one round "
+            f"({rounds})")
+    clips = [spikes[i] for i in range(4)]
+    res = run_bucketed(mapped.pack(device=dev), clips,
+                       policy=BucketPolicy(batch_sizes=(4,),
+                                           time_steps=(CIFAR_CONV.num_steps,)))
+    require(all(oracle_equal(r, run(mapped, c)) for r, c in zip(res, clips)),
+            "trained conv SNN on the dense kernel equals the oracle")
+    return dict(card=json.dumps(card), in_shape=list(CIFAR_CONV.in_shape),
+                channels=list(CIFAR_CONV.conv_channels),
+                params=sum(p.numel() for p in params), batch=32,
+                grad_shards=8, steps=20, lr=TRAIN_LR,
+                loss_first=round(hist["loss"][0], 6),
+                loss_last=round(hist["loss"][-1], 6),
+                step_ms=round(1e3 * float(np.median(hist["step_time"][1:])),
+                              3),
+                accel=ACCEL_2.name, layers=[type(s).__name__ for s in
+                                            layer_specs(pruned, CIFAR_CONV)],
+                rounds=rounds, map_s=round(map_s, 2), clips=len(clips),
+                out_spikes=[int(r.out_spikes.sum()) for r in res],
+                oracle_equal=True,
+                seconds=round(time.perf_counter() - t_start, 2))
+
+
+def train_sync_free(dev, card: str) -> dict:
+    """One ``make_snn_train_step`` call of each family (the N-MNIST MLP,
+    the conv SNN; ``grad_shards=8``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the step reads nothing
+    from the device."""
+    from repro_torch.configs.menage_paper import (CIFAR_CONV, NMNIST_DATA,
+                                                  NMNIST_SNN)
+    from repro_torch.engine import (CONV_MODEL, MLP_MODEL, SNNTrainConfig,
+                                    make_snn_train_step)
+    from repro_torch.engine.train_loop import init_train_state
+
+    opt_cfg = SNNTrainConfig().adamw()
+    rng = np.random.default_rng(SEED + 26)
+    out = {}
+    for model, cfg, n_in in ((MLP_MODEL, NMNIST_SNN, NMNIST_DATA.n_in),
+                             (CONV_MODEL, CIFAR_CONV, CIFAR_CONV.n_in)):
+        params = model.init(torch.Generator().manual_seed(SEED + 27), cfg,
+                            dev)
+        state = init_train_state(None, params, opt_cfg).as_tree()
+        step = make_snn_train_step(model, cfg, opt_cfg, grad_shards=8)
+        batch = {"spikes": torch.from_numpy(
+                     (rng.random((cfg.num_steps, 64, n_in)) < 0.05)
+                     .astype(np.float32)).to(dev),
+                 "labels": torch.from_numpy(rng.integers(0, 10, 64)).to(dev),
+                 "lr": torch.full((), TRAIN_LR, device=dev)}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        err = None
+        try:
+            step(state, batch)
+        except RuntimeError as e:
+            err = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(err is None, f"{model.name} train step waits on the device: "
+                f"{err}")
+        out[model.name] = True
+    return dict(card=json.dumps(card), **out)
+
+
+def phase_train(dev, card: str) -> tuple[list, dict]:
+    """Phase 9: training on the card, then serving what it trained.  The
+    launch counts go to 0 at the phase's start and are read at its end:
+    training launches none of the hand-written kernels (it runs the plain
+    ``lif_step`` under autograd), its serving ends launch all three event
+    path kernels."""
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [("train_nmnist", train_nmnist(dev, card)),
+             ("train_cifar", train_cifar(dev, card)),
+             ("train_conv", train_conv(dev, card)),
+             ("train_sync_free", train_sync_free(dev, card))]
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(all(counts[k] > 0 for k in ("event_synapse",
+                                        "event_synapse_packed",
+                                        "lif_update")),
+            f"train phase launches {counts}")
+    lines.append(("train", dict(card=json.dumps(card),
+                                launches=json.dumps(counts),
+                                seconds=round(time.perf_counter() - t_start,
+                                              2))))
+    return lines, counts
+
+
+def device_ms_by_name(prof) -> dict:
+    """Device time in ms of a profiler trace, summed by kernel name (the
+    template arguments dropped) and by copy kind."""
+    from torch.autograd import DeviceType
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name if "Memcpy" in e.name else e.name.split("<")[0]
+            device[key] = device.get(key, 0.0) + e.device_time_total / 1e3
+    return device
+
+
 def phase_breakdown(packed, streams, plan) -> dict:
     """Where one engine call of ``plan`` goes: each stage of run_batched
     timed on the host clock around synchronised work, and the device's busy
     time (kernels and copies) from the profiler over the same window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.engine.batched_run import _finalize, _forward_impl
@@ -1141,11 +1563,7 @@ def phase_breakdown(packed, streams, plan) -> dict:
         outs = stage("d2h", lambda: [o.cpu().numpy() for o in outs])
         stage("stats", lambda: _finalize(packed, host, outs, None, None,
                                          True))
-    device = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name if "Memcpy" in e.name else e.name.split("<")[0]
-            device[key] = device.get(key, 0.0) + e.device_time_total / 1e3
+    device = device_ms_by_name(prof)
     wall = sum(stages.values())
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
@@ -1216,6 +1634,13 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    phase_s: dict[str, float] = {}
+    mark = [time.perf_counter()]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        took, mark[0] = round(now - mark[0], 2), now
+        return took
 
     # 1. build
     build_s = _build.build_all()
@@ -1223,6 +1648,7 @@ def main() -> int:
             for name, text in _build.build_log.items()}
     log("build", seconds=round(build_s, 2), torch=torch.__version__,
         cuda=torch.version.cuda, ptxas=json.dumps(regs))
+    phase_s["build"] = lap()
 
     # the CIFAR10-DVS MLP at native width, on Accel_2
     rng = np.random.default_rng(SEED)
@@ -1250,6 +1676,7 @@ def main() -> int:
         pack_s=round(pack_s, 2), pack_mib=round(pack_mib, 1),
         rounds=[len(l.rounds) for l in mapped.layers],
         sram_bytes=[l.sram_bytes for l in mapped.layers])
+    phase_s["map"] = lap()
 
     # 2. kernels against their plain versions, at the main path's shapes
     kernels = phase_kernels(dense, packed, x_big)
@@ -1261,6 +1688,7 @@ def main() -> int:
         dense, packed, l1.reshape(b_big * t_big, -1).contiguous()))
     log("sync_free", **phase_sync_free({"dense": dense, "packed": packed},
                                        x_big))
+    phase_s["kernels"] = lap()
 
     # 3. serve: warm once, then the counted run of the dense route
     drive(dense, streams, policy)
@@ -1295,12 +1723,14 @@ def main() -> int:
         requests_per_s=round(len(streams) / seconds, 2),
         cpu_equal=True, packed_equal=True)
     log("breakdown", **phase_breakdown(dense, streams, big))
+    phase_s["serve"] = lap()
 
     # 4. stream: the always-on server in front of the same packed model
     rng_s = np.random.default_rng(SEED + 5)
     log("stream", **phase_stream(
         dense, lambda lengths: rate_map_streams(rng_s, CIFAR_DATA, lengths),
         policy, telemetry))
+    phase_s["stream"] = lap()
 
     # 5. the N-MNIST MLP at 4 bits, packed kernel, against the oracle
     rng4 = np.random.default_rng(SEED + 2)
@@ -1326,22 +1756,32 @@ def main() -> int:
     log("nmnist4", accel=ACCEL_1.name, gain=gain4,
         out_spikes=[int(r.out_spikes.sum()) for r in res4],
         launches=json.dumps(counts4), oracle_equal=True)
+    phase_s["nmnist4"] = lap()
 
     # 6. socket: the wire front end serving both tenants on the card
     sock = phase_socket(dense, packed, mapped4, packed4, policy,
                         (CIFAR_DATA, NMNIST_DATA))
     log("socket", **sock)
     counts_sock = json.loads(sock["launches"])
+    phase_s["socket"] = lap()
 
     # 7. precision: searched per-layer widths served on the packed kernels
     prec = phase_precision(policy, dev, card)
     log("precision", **prec)
     counts_prec = json.loads(prec["launches"])
+    phase_s["precision"] = lap()
 
     # 8. spikify: a transformer FFN's widths on the dense event kernel
     spk, spk_row = phase_spikify(dev, card)
     log("spikify", **spk)
     counts_spk = json.loads(spk["launches"])
+    phase_s["spikify"] = lap()
+
+    # 9. train: both families trained on the card, then served
+    train_lines, counts_train = phase_train(dev, card)
+    for name, fields in train_lines:
+        log(name, **fields)
+    phase_s["train"] = lap()
 
     for row in kernels:
         row["launches"] = (counts_pk if row["name"] == "event_synapse_packed"
@@ -1350,10 +1790,13 @@ def main() -> int:
         row["precision_launches"] = counts_prec[row["name"]]
         row["spikify_launches"] = counts_spk[row["name"]]
     kernels.append(spk_row)
+    for row in kernels:
+        row["train_launches"] = counts_train[row["name"]]
+    log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "on_path")
+            "train_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))

@@ -2,6 +2,10 @@
 
 The port never imports the reference.  What crosses over is plain numpy:
 
+  * :func:`params_from_reference` takes the reference SNN's trainable
+    parameter list (MLP matrices ``[n_in, n_out]``, conv kernels OIHW, as
+    numpy) and returns the port's float32 tensors on a device — the layouts
+    are the same, so the weights cross unchanged.
   * :func:`specs_from_reference` takes the reference MLP's parameter list
     (``[w_0, w_1, ...]``, each ``[n_in, n_out]``, as numpy arrays) and
     returns the port's layer specs for :func:`map_model`.
@@ -31,6 +35,7 @@ from repro_torch.core.layers import Conv2d, Dense
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.mapping import MappingSolution
 from repro_torch.core.memories import MemTables, WeightCompression
+from repro_torch.device import resolve_device
 
 _SPEC = ("name", "n_cores", "n_engines", "n_caps", "weight_mem_bytes")
 _LIF = ("beta", "threshold", "v_reset", "surrogate_slope")
@@ -43,6 +48,15 @@ _TABLES = ("e2a_count", "e2a_addr", "sn_valid", "sn_virt", "sn_waddr",
            "engine_words", "weight_ptr")
 _COMPRESSION = ("synapse_words", "slot_words", "dict_words", "ptr_bits",
                 "dict_bits_total")
+
+
+def params_from_reference(params: list[np.ndarray],
+                          device="cuda") -> list[torch.Tensor]:
+    """The reference SNN's parameter list as float32 tensors on ``device``,
+    bit for bit."""
+    dev = resolve_device(device)
+    return [torch.from_numpy(np.array(p, dtype=np.float32)).to(dev)
+            for p in params]
 
 
 def specs_from_reference(params: list[np.ndarray]) -> list[Dense]:

@@ -28,8 +28,10 @@ class LIFParams:
 
 
 def lif_constants(p: LIFParams, device) -> tuple[torch.Tensor, ...]:
-    """``(beta, threshold, v_reset)`` as float32 scalars on ``device``."""
-    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+    """``(beta, threshold, v_reset)`` as float32 scalars on ``device``,
+    filled in place there: no host-to-device copy, so a forward that makes
+    them once reads and waits on nothing."""
+    return tuple(torch.full((), x, dtype=torch.float32, device=device)
                  for x in (p.beta, p.threshold, p.v_reset))
 
 
@@ -62,10 +64,16 @@ def spike_fn(v: torch.Tensor, threshold, slope) -> torch.Tensor:
     return SpikeFn.apply(v, threshold, slope)
 
 
-def lif_step(v: torch.Tensor, current: torch.Tensor, p: LIFParams):
+def lif_step(v: torch.Tensor, current: torch.Tensor, p: LIFParams,
+             constants: tuple[torch.Tensor, ...] | None = None):
     """One clock edge of the A-NEURON: integrate, fire (through
-    :func:`spike_fn`), reset.  Returns ``(v_next, spikes)``."""
-    beta, threshold, v_reset = lif_constants(p, v.device)
+    :func:`spike_fn`), reset.  Returns ``(v_next, spikes)``.
+
+    ``constants`` is :func:`lif_constants` ``(p, v.device)``, made once by
+    a caller that steps many times (a forward over T and the layers);
+    without it each call makes its own."""
+    beta, threshold, v_reset = (lif_constants(p, v.device)
+                                if constants is None else constants)
     v_integrated = beta * v + current
     spikes = spike_fn(v_integrated, threshold, p.surrogate_slope)
     v_next = torch.where(spikes > 0, v_reset, v_integrated)
@@ -79,9 +87,10 @@ def lif_rollout(currents: torch.Tensor, p: LIFParams,
     if currents.shape[0] == 0:
         return torch.zeros_like(currents), torch.zeros_like(currents)
     v = torch.zeros_like(currents[0]) if v0 is None else v0
+    constants = lif_constants(p, currents.device)
     spikes, vtrace = [], []
     for t in range(currents.shape[0]):
-        v, s = lif_step(v, currents[t], p)
+        v, s = lif_step(v, currents[t], p, constants)
         spikes.append(s)
         vtrace.append(v)
     return torch.stack(spikes), torch.stack(vtrace)

@@ -41,6 +41,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in the order of
+    :func:`tree_leaves` (``like``'s own leaves are only counted); the
+    inverse of ``tree_leaves``.  A leaf may itself be a container."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return type(t)((k, done[k]) for k in t)
+        if isinstance(t, (list, tuple)):
+            items = [build(v) for v in t]
+            return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has places")
+    return out
+
+
 def is_float_matrix(leaf) -> bool:
     """A ``>= 2``-D floating-point tensor or array: the weight matrices that
     quantization and pruning act on (biases and scalars are left alone)."""

@@ -73,3 +73,28 @@ def synthetic_event_dataset(cfg: EventDatasetConfig, n_per_class: int,
     spikes = (u < rates).astype(np.float32)
     perm = np.random.default_rng(seed + 1).permutation(n)
     return spikes[perm], labels[perm]
+
+
+def event_batches(spikes: np.ndarray, labels: np.ndarray, batch: int,
+                  seed: int = 0):
+    """Infinite iterator of time-major batches ``(spikes [T, B, n_in],
+    labels [B])`` as numpy arrays, drawn with replacement from a numpy
+    generator seeded with ``seed`` (the reference's draws, index for
+    index); the trainer uploads them."""
+    rng = np.random.default_rng(seed)
+    n = spikes.shape[0]
+    while True:
+        idx = rng.integers(0, n, size=batch)
+        yield spikes[idx].swapaxes(0, 1), labels[idx]
+
+
+def event_batch_at(spikes: np.ndarray, labels: np.ndarray, batch: int,
+                   step: int, seed: int = 0):
+    """The step-keyed batch: time-major ``(spikes [T, B, n_in], labels
+    [B])`` derived from ``(seed, step)`` alone, so a restarted training run
+    replays the exact remaining batches with no reader state — the
+    restart-safe data form :func:`repro_torch.engine.snn_train.train_snn_model`
+    wants."""
+    rng = np.random.default_rng((seed, step))
+    idx = rng.integers(0, spikes.shape[0], size=batch)
+    return spikes[idx].swapaxes(0, 1), labels[idx]

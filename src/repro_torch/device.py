@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -17,3 +19,24 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def exact_float32(device):
+    """Float32 products on ``device`` rounded as float32, run after run:
+    on the card, cuBLAS matmuls and cuDNN convolutions with TF32 off and
+    cuDNN's deterministic algorithms (its weight gradients may otherwise
+    sum in a different order each run), scoped to the block and restored
+    after it; on the CPU, nothing to set."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

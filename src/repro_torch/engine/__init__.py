@@ -1,5 +1,5 @@
-"""Batched engine, bucketed serving front end and always-on serving fabric
-of the port."""
+"""Batched engine, bucketed serving front end, always-on serving fabric and
+SNN training engine of the port."""
 
 from repro_torch.engine.batched_run import (  # noqa: F401
     BatchedDispatchStats,
@@ -59,4 +59,19 @@ from repro_torch.engine.chaos import (  # noqa: F401
     run_scenario,
     swap_model_for,
     synth_arrival_trace,
+)
+from repro_torch.engine.train_loop import (  # noqa: F401
+    TrainLoopConfig,
+    TrainState,
+    make_train_step,
+    train_loop,
+)
+from repro_torch.engine.snn_train import (  # noqa: F401
+    CONV_MODEL,
+    MLP_MODEL,
+    SNNModel,
+    SNNTrainConfig,
+    make_snn_train_step,
+    model_for,
+    train_snn_model,
 )

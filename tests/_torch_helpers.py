@@ -254,3 +254,61 @@ class Twin:
         assert self.done_port.keys() == self.done_ref.keys()
         for rid, res in self.done_port.items():
             assert_results_equal(res, self.done_ref[rid], f"rid {rid}")
+
+
+# ------------------------------------------------------ training twins
+
+def oracle_membranes(specs, lif, spikes) -> list[np.ndarray]:
+    """The integrated membrane ``beta * v + I`` of every layer at every
+    step, ``[T, ..., n]`` each, by the reference's dense oracle arithmetic
+    (``repro.core.accelerator.reference_forward``: float32 currents from
+    each spec's unrolled matrix, the LIF roll-out in numpy), on a
+    time-major raster ``[T, B, n_in]`` or ``[T, n_in]``."""
+    x = np.asarray(spikes, dtype=np.float32)
+    beta = np.float32(lif.beta)
+    out = []
+    for spec in specs:
+        cur = x @ np.asarray(ref_layers.as_layer_spec(spec).unroll(),
+                             dtype=np.float32)
+        v = np.zeros(cur.shape[1:], np.float32)
+        vi_t, s_t = [], []
+        for t in range(cur.shape[0]):
+            vi = beta * v + cur[t]
+            s = (vi >= np.float32(lif.threshold)).astype(np.float32)
+            v = np.where(s > 0, np.float32(lif.v_reset), vi)
+            vi_t.append(vi)
+            s_t.append(s)
+        out.append(np.stack(vi_t))
+        x = np.stack(s_t)
+    return out
+
+
+def assert_spikes_match(ref, port, ref_membrane, threshold, ulps=4, ctx=""):
+    """Two spike trains equal, except where the reference's membrane lies
+    within ``ulps`` ulp of the threshold: the float32 sums of the two
+    packages may order their terms differently, and only a membrane that
+    close to the threshold may then fire in one and not the other."""
+    ref, port = np.asarray(ref), np.asarray(port)
+    diff = ref != port
+    if not diff.any():
+        return
+    near = (np.abs(np.asarray(ref_membrane, np.float32) - np.float32(threshold))
+            <= ulps * np.spacing(np.float32(threshold)))
+    bad = diff & ~near
+    assert not bad.any(), (
+        f"{ctx}: {int(bad.sum())} of {int(diff.sum())} differing spikes lie "
+        f"more than {ulps} ulp from the threshold (a flip is accepted only "
+        f"where the reference membrane is within {ulps} ulp of it)")
+
+
+def assert_grads_close(ref, port, rtol=1e-4, atol_frac=1e-6, ctx=""):
+    """Gradient leaves held at ``rtol`` and an absolute floor of
+    ``atol_frac * max|g|`` per leaf: the two packages sum each product in
+    a different float32 order, and the surrogate derivative multiplies
+    those differences through every layer and step."""
+    for i, (a, b) in enumerate(zip(ref, port)):
+        a = np.asarray(a)
+        b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
+        np.testing.assert_allclose(
+            b, a, rtol=rtol, atol=atol_frac * float(np.abs(a).max()),
+            err_msg=f"{ctx} grad leaf {i}")

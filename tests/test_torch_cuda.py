@@ -588,3 +588,122 @@ def test_cuda_spikified_linear_equals_plain(card, n_in, n_out, t, b, p):
     assert int(valid.max()) < n_in // 2           # mostly padding
     acc_cpu, n_cpu = accumulate_frames(frames.cpu(), w.cpu())
     assert torch.equal(acc.cpu(), acc_cpu) and int(n_cpu) == int(st["events"])
+
+
+# ------------------------------------------------------------- training
+
+def _train_setup(family):
+    from repro_torch.data.events import (EventDatasetConfig,
+                                         synthetic_event_dataset)
+    from repro_torch.engine import CONV_MODEL, MLP_MODEL
+    from repro_torch.snn import ConvSNNConfig, SNNConfig
+    data = EventDatasetConfig("card-train", 8, 8, num_steps=8,
+                              base_rate=0.02, signal_rate=0.5)
+    spikes, labels = synthetic_event_dataset(data, 4,
+                                             np.random.default_rng(0))
+    if family == "mlp":
+        return MLP_MODEL, SNNConfig((data.n_in, 24, 10), num_steps=8), \
+            spikes, labels
+    return CONV_MODEL, ConvSNNConfig((2, 8, 8), (4, 8), num_steps=8), \
+        spikes, labels
+
+
+def _train_batch(spikes, labels, device, step=0, lr=2e-3):
+    from repro_torch.data.events import event_batch_at
+    sp, lb = event_batch_at(spikes, labels, 16, step)
+    return {"spikes": _t(np.ascontiguousarray(sp)).to(device),
+            "labels": _t(lb).to(device),
+            "lr": torch.full((), lr, dtype=torch.float32, device=device)}
+
+
+@pytest.mark.parametrize("family", ["mlp", "conv"])
+def test_cuda_train_step_matches_cpu_and_is_sync_free(card, family):
+    """One ``make_snn_train_step`` call on the card from the CPU's start on
+    the same batch: it reads nothing from the device (it runs under
+    ``set_sync_debug_mode("error")``), its loss is the CPU's within rtol
+    1e-4, its accuracy equal, and its parameters within two lr (Adam's
+    first step moves a weight by up to lr whatever the size of its
+    gradient, so a near-zero gradient whose float32 sum has the other sign
+    on the CPU moves the two apart by up to 2 lr)."""
+    from repro_torch.engine import make_snn_train_step
+    from repro_torch.engine.train_loop import init_train_state
+    from repro_torch.engine.snn_train import SNNTrainConfig
+    model, cfg, spikes, labels = _train_setup(family)
+    opt_cfg = SNNTrainConfig().adamw()
+    params = model.init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    step = make_snn_train_step(model, cfg, opt_cfg, grad_shards=2)
+    want, wm = step(init_train_state(None, params, opt_cfg).as_tree(),
+                    _train_batch(spikes, labels, "cpu"))
+    state = init_train_state(None, [p.to(card) for p in params],
+                             opt_cfg).as_tree()
+    batch = _train_batch(spikes, labels, card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, gm = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-4)
+    assert float(gm["acc"]) == float(wm["acc"])
+    for a, b in zip(got["params"], want["params"]):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=4e-3)
+
+
+@pytest.mark.parametrize("family", ["mlp", "conv"])
+def test_cuda_resume_is_bit_exact(card, tmp_path, family):
+    """On the card, stop at step 6 and resume to 12: the parameters equal
+    an uninterrupted 12-step run's bit for bit (deterministic cuDNN and
+    cuBLAS, TF32 off)."""
+    from repro_torch.data.events import event_batch_at
+    from repro_torch.engine import SNNTrainConfig, train_snn_model
+    model, cfg, spikes, labels = _train_setup(family)
+
+    def run(steps, ckpt):
+        tc = SNNTrainConfig(steps=steps, lr=2e-3, grad_shards=2,
+                            checkpoint_dir=ckpt, checkpoint_every=6,
+                            log_every=1000)
+        return train_snn_model(
+            model, cfg, lambda s: event_batch_at(spikes, labels, 16, s), tc,
+            key=torch.Generator().manual_seed(1), log_fn=lambda s: None)
+
+    ref, ref_hist = run(12, str(tmp_path / "ref"))
+    run(6, str(tmp_path / "ab"))
+    resumed, hist = run(12, str(tmp_path / "ab"))
+    assert hist["loss"] == ref_hist["loss"][6:]
+    assert all(p.device.type == "cuda" for p in resumed)
+    for a, b in zip(resumed, ref):
+        assert torch.equal(a, b)
+
+
+def test_cuda_trained_conv_served_on_dense_kernel(card):
+    """A conv SNN trained on the card, pruned and lowered with
+    ``layer_specs``, served by ``run_bucketed`` on the dense event kernel:
+    every clip equals the numpy oracle (spikes, cycles, engine ops)."""
+    from repro_torch.core.prune import prune_pytree
+    from repro_torch.data.events import event_batch_at
+    from repro_torch.engine import CONV_MODEL, SNNTrainConfig, \
+        train_snn_model
+    from repro_torch.snn import layer_specs
+    _, cfg, spikes, labels = _train_setup("conv")
+    params, hist = train_snn_model(
+        CONV_MODEL, cfg, lambda s: event_batch_at(spikes, labels, 16, s),
+        SNNTrainConfig(steps=6, grad_shards=2),
+        key=torch.Generator().manual_seed(1), log_fn=lambda s: None)
+    assert np.isfinite(hist["loss"]).all()
+    pruned, _ = prune_pytree(params, 0.5)
+    spec = AcceleratorSpec("test", n_cores=8, n_engines=4, n_caps=8,
+                           weight_mem_bytes=1 << 16)
+    mapped = map_model(layer_specs(pruned, cfg), spec, lif=cfg.lif)
+    assert any(len(layer.rounds) > 1 for layer in mapped.layers)
+    clips = [spikes[i] for i in range(4)]
+    _build.reset_launches()
+    res = run_bucketed(mapped.pack(device=card), clips)
+    assert _build.launches["event_synapse"] > 0
+    for r, s in zip(res, clips):
+        oracle = run(mapped, s)
+        np.testing.assert_array_equal(r.out_spikes, oracle.out_spikes)
+        for a, b in zip(r.stats, oracle.per_layer_stats):
+            np.testing.assert_array_equal(a.cycles, b.cycles)
+            np.testing.assert_array_equal(a.engine_ops, b.engine_ops)

@@ -1,0 +1,38 @@
+"""The port stands alone: importing every module of ``repro_torch`` in a
+fresh interpreter brings in neither JAX nor the reference package."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "repro")
+                or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    p = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    for name in ("repro_torch.snn.mlp", "repro_torch.snn.conv",
+                 "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.engine.train_loop",
+                 "repro_torch.engine.snn_train",
+                 "repro_torch.launch.socket_serve"):
+        assert name in got["modules"], name
+    assert got["leaked"] == [], got["leaked"]
