@@ -78,6 +78,25 @@ Phases, one line each:
                against the oracle; one train step of each family under
                set_sync_debug_mode("error"); the launch counts of the
                serving ends
+ 10. mesh      the data-parallel mesh, 2-way: cuda:0 and cuda:1 where the
+               host has two cards, else two spoofed shards of the one
+               (``mesh:`` line).  ``mesh_serve:`` the native-width
+               CIFAR10-DVS MLP's 8 requests on the dense and the packed
+               route through run_bucketed(mesh=) on covering(n_shards=2)
+               buckets, equal to the single-device call (spikes, dispatch
+               stats, utilization, overflow) and for the shortest
+               request to the oracle, each shard launching every layer's
+               kernels (twice a single-device call's launches), both
+               calls' wall time; ``mesh_chaos:`` the device_loss and
+               blackout scenarios on that model, each replayed twice:
+               deterministic, the mesh 2 -> 1, every admitted request
+               served and equal to a single-device run; ``mesh_train:``
+               the native-width CIFAR10-DVS MLP 3 steps on the mesh
+               against 3 single-device steps at grad_shards=2, bit for
+               bit, a mesh step under set_sync_debug_mode("error"),
+               CIFAR_CONV 2 steps on the mesh with a checkpoint resumed on
+               a 1-way mesh to step 4, bit for bit, and the trained conv
+               SNN served across the mesh against the oracle
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -260,6 +279,40 @@ def padded(streams, plan, n_in: int, device) -> torch.Tensor:
     for row, i in enumerate(plan.indices):
         x[row, :streams[i].shape[0]] = streams[i]
     return torch.from_numpy(x).to(device)
+
+
+def cifar_model(dev) -> dict:
+    """The main path's model: the native-width CIFAR10-DVS MLP, seeded,
+    pruned and scaled to fire through every layer, mapped onto Accel_2 and
+    packed on ``dev`` on both routes, with the 8 requests it serves.
+    Returns every piece by name, with the mapping and packing costs."""
+    from repro_torch.configs.menage_paper import ACCEL_2, CIFAR_DATA, CIFAR_SNN
+    from repro_torch.core.accelerator import map_model
+    from repro_torch.engine import BucketPolicy, plan_batches
+
+    rng = np.random.default_rng(SEED)
+    streams = make_requests(rng, CIFAR_DATA, N_REQUESTS)
+    policy = BucketPolicy(batch_sizes=(4, 8), time_steps=(16, 32))
+    plans = plan_batches([s.shape[0] for s in streams], policy)
+    big = max(plans, key=lambda p: p.b_pad * p.t_pad)
+    x_big = padded(streams, big, CIFAR_SNN.layer_sizes[0], dev)
+    ws = pruned_mlp(np.random.default_rng(SEED + 1), CIFAR_SNN.layer_sizes)
+    gain = pick_gain(ws, x_big, CIFAR_SNN.lif)
+    ws = [w * np.float32(gain) for w in ws]
+    t0 = time.perf_counter()
+    mapped = map_model(ws, ACCEL_2, lif=CIFAR_SNN.lif)
+    map_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dense = mapped.pack(device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    pack_mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+    packed = mapped.pack(packed_ops=True, device=dev)
+    return dict(streams=streams, policy=policy, plans=plans, big=big,
+                x_big=x_big, ws=ws, gain=gain, mapped=mapped, map_s=map_s,
+                dense=dense, pack_s=pack_s, pack_mib=pack_mib, packed=packed)
 
 
 def phase_kernels(dense, packed, x: torch.Tensor) -> list[dict]:
@@ -1523,6 +1576,264 @@ def phase_train(dev, card: str) -> tuple[list, dict]:
     return lines, counts
 
 
+def sync_all() -> None:
+    """Wait for every card (a real mesh spreads work over several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def smoke_mesh(dev):
+    """The mesh phase's 2-way mesh: cuda:0 and cuda:1 where the host has
+    two cards, else two spoofed shards of ``dev``."""
+    from repro_torch.engine import snn_serve_mesh
+    if torch.cuda.device_count() >= 2:
+        return snn_serve_mesh(2)
+    return snn_serve_mesh(device=dev, spoof=2)
+
+
+def same_served(a, b) -> bool:
+    """Two RequestResults, spikes, dispatch stats, utilization and
+    overflow."""
+    return (same_result(a, b) and len(a.util) == len(b.util)
+            and all(np.array_equal(x, y) for x, y in zip(a.util, b.util))
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a.overflow, b.overflow)))
+
+
+def mesh_serve(mesh, mapped, routes: dict, streams, card: str
+               ) -> tuple[dict, dict]:
+    """The 8 requests on each route through ``run_bucketed(mesh=)`` with
+    ``covering(n_shards=2)`` buckets, against the single-device call on the
+    same buckets and, for the shortest request, the numpy oracle (about
+    30 s of host time at native width); the
+    launches of each counted call (each shard launches every layer, so a
+    mesh call launches twice a single-device call's), and the wall time of
+    each beside the other."""
+    from repro_torch.core.accelerator import run
+    from repro_torch.engine import BucketPolicy, plan_batches
+
+    lengths = [s.shape[0] for s in streams]
+    policy = BucketPolicy.covering(lengths, n_shards=mesh.size)
+    plans = plan_batches(lengths, policy)
+    require(all(p.b_pad % mesh.size == 0 for p in plans),
+            f"every bucket splits over the mesh: {plans}")
+    out = dict(card=json.dumps(card), policy=json.dumps(
+        [list(policy.batch_sizes), list(policy.time_steps)]),
+        plans=[(p.b_pad, p.t_pad) for p in plans])
+    counts, served = {}, {}
+    for route, model in routes.items():
+        drive(model, streams, policy)                  # warm, one device
+        one, c_one, s_one = drive(model, streams, policy)
+        drive(model, streams, policy, mesh=mesh)       # warm, the mesh
+        res, c_mesh, s_mesh = drive(model, streams, policy, mesh=mesh)
+        synapse = ("event_synapse_packed" if route == "packed"
+                   else "event_synapse")
+        for k in (synapse, "lif_update"):
+            require(c_one[k] > 0 and c_mesh[k] == mesh.size * c_one[k],
+                    f"mesh {route} launches {c_mesh} are {mesh.size}x the "
+                    f"single-device call's {c_one}")
+        require(all(same_served(a, b) for a, b in zip(res, one)),
+                f"mesh {route} route equals the single-device run")
+        counts[route], served[route] = c_mesh, res
+        out[f"{route}_launches"] = json.dumps(c_mesh)
+        out[f"{route}_one_launches"] = json.dumps(c_one)
+        out[f"{route}_mesh_s"] = round(s_mesh, 4)
+        out[f"{route}_one_s"] = round(s_one, 4)
+    short = sorted(range(len(streams)), key=lambda i: lengths[i])[:1]
+    t0 = time.perf_counter()
+    for i in short:
+        oracle = run(mapped, streams[i])
+        for route in routes:
+            require(oracle_equal(served[route][i], oracle)
+                    and all(np.array_equal(u, v) for u, v in
+                            zip(served[route][i].util,
+                                oracle.per_layer_util)),
+                    f"mesh {route} request {i} equals the oracle")
+    out.update(oracle_requests=short,
+               oracle_s=round(time.perf_counter() - t0, 2),
+               single_equal=True, oracle_equal=True)
+    return out, counts
+
+
+def mesh_chaos(mesh, dense, card: str) -> dict:
+    """The chaos scenarios that script device loss, each replayed twice on
+    the mesh: deterministic, the mesh 2 -> 1, every admitted request
+    served, and every completed request equal to the single-device
+    engine's run of it (through the scenario's noisy device instance where
+    it serves one)."""
+    from repro_torch.core.noise import (AnalogNoise, as_noise_key,
+                                        perturb_packed)
+    from repro_torch.engine import (SCENARIOS, run_bucketed, run_scenario,
+                                    synth_arrival_trace)
+    out = dict(card=json.dumps(card))
+    for name in ("device_loss", "blackout"):
+        sc = SCENARIOS[name]
+        t0 = time.perf_counter()
+        r1, rids, m1 = run_scenario(dense, sc, mesh=mesh)
+        r2, _, m2 = run_scenario(dense, sc, mesh=mesh)
+        wall = time.perf_counter() - t0
+        require(m1 == m2 and r1.keys() == r2.keys() and all(
+            np.array_equal(r1[k].out_spikes, r2[k].out_spikes) for k in r1),
+            f"{name} replays deterministically on the mesh")
+        require(m1["device_losses"] == len(sc.lose_devices)
+                and (m1["mesh_size_start"], m1["mesh_size_end"])
+                == (mesh.size, mesh.size - 1)
+                and m1["served_all_admitted"],
+                f"{name} recovers onto the shrunken mesh: {m1}")
+        served = (perturb_packed(as_noise_key(sc.seed), dense,
+                                 AnalogNoise(weight_sigma=sc.noise_sigma))
+                  if sc.noise_sigma > 0 else dense)
+        trace = synth_arrival_trace(
+            sc.n_requests, dense.n_in, mode=sc.arrivals, rate=sc.rate,
+            slack=sc.slack, t_lo=sc.t_lo, t_hi=sc.t_hi, seed=sc.seed)
+        done = [(rid, s) for rid, (_, s, _) in zip(rids, trace)
+                if rid is not None and rid in r1]
+        require(len(done) == m1["completed"] > 0, f"{name} completed")
+        one = run_bucketed(served, [s for _, s in done], with_stats=False)
+        require(all(np.array_equal(r1[rid].out_spikes, o.out_spikes)
+                    for (rid, _), o in zip(done, one)),
+                f"{name}: every completed request equals a single-device "
+                f"run")
+        out[name] = json.dumps({
+            k: m1[k] for k in ("requests", "completed", "dispatches",
+                               "device_losses", "mesh_size_start",
+                               "mesh_size_end", "served_all_admitted",
+                               "shed", "rejected", "noise_probes")})
+        out[f"{name}_wall_s"] = round(wall, 2)
+    out.update(deterministic=True, single_equal=True)
+    return out
+
+
+def mesh_train(mesh, card: str) -> dict:
+    """Data-parallel training on the mesh: the native-width CIFAR10-DVS MLP
+    3 steps against 3 single-device steps at ``grad_shards=2`` (losses and
+    parameters bit for bit, one mesh step under
+    ``set_sync_debug_mode("error")``); CIFAR_CONV 2 steps on the mesh with
+    a checkpoint, resumed on a 1-way mesh to step 4, bit for bit the
+    uninterrupted 4 steps on the mesh; the trained conv SNN mapped onto
+    Accel_2 and served across the mesh on the dense kernel against the
+    oracle."""
+    import tempfile
+
+    from repro_torch.configs.menage_paper import (ACCEL_2, CIFAR_CONV,
+                                                  CIFAR_CONV_DATA,
+                                                  CIFAR_DATA, CIFAR_SNN)
+    from repro_torch.core.accelerator import map_model, run
+    from repro_torch.core.prune import prune_pytree
+    from repro_torch.data.events import event_batch_at, \
+        synthetic_event_dataset
+    from repro_torch.engine import (CONV_MODEL, MLP_MODEL, BucketPolicy,
+                                    SNNTrainConfig, make_snn_train_step,
+                                    run_bucketed, shrink_mesh,
+                                    train_snn_model)
+    from repro_torch.engine.train_loop import init_train_state
+    from repro_torch.snn import layer_specs
+
+    home = mesh.devices[0]
+    spikes, labels = synthetic_event_dataset(
+        CIFAR_DATA, 4, np.random.default_rng(SEED + 30))
+
+    def cifar(**kw):
+        return train_snn_model(
+            MLP_MODEL, CIFAR_SNN,
+            lambda step: event_batch_at(spikes, labels, 16, step),
+            SNNTrainConfig(steps=3, lr=TRAIN_LR, log_every=1000, **kw),
+            key=torch.Generator().manual_seed(SEED + 31), device=home,
+            log_fn=_quiet)
+
+    t0 = time.perf_counter()
+    p_mesh, h_mesh = cifar(mesh=mesh)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_one, h_one = cifar(grad_shards=mesh.size)
+    one_s = time.perf_counter() - t0
+    require(h_mesh["loss"] == h_one["loss"]
+            and all(torch.equal(a, b) for a, b in zip(p_mesh, p_one)),
+            "CIFAR10-DVS mesh training equals single-device training at "
+            "grad_shards=2 bit for bit")
+    opt_cfg = SNNTrainConfig(lr=TRAIN_LR).adamw()
+    step = make_snn_train_step(MLP_MODEL, CIFAR_SNN, opt_cfg, mesh=mesh)
+    state = init_train_state(None, p_mesh, opt_cfg).as_tree()
+    sp, lb = event_batch_at(spikes, labels, 16, 3)
+    batch = {"spikes": torch.from_numpy(np.ascontiguousarray(sp)).to(home),
+             "labels": torch.from_numpy(lb).to(home),
+             "lr": torch.full((), TRAIN_LR, device=home)}
+    sync_all()
+    torch.cuda.set_sync_debug_mode("error")
+    err = None
+    try:
+        step(state, batch)
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_all()
+    require(err is None, f"the mesh train step waits on the device: {err}")
+
+    cspikes, clabels = synthetic_event_dataset(
+        CIFAR_CONV_DATA, 16, np.random.default_rng(SEED + 32))
+
+    def conv(steps, m, ckpt):
+        return train_snn_model(
+            CONV_MODEL, CIFAR_CONV,
+            lambda step: event_batch_at(cspikes, clabels, 32, step),
+            SNNTrainConfig(steps=steps, lr=TRAIN_LR, mesh=m,
+                           grad_shards=mesh.size, checkpoint_dir=ckpt,
+                           checkpoint_every=2, log_every=1000),
+            key=torch.Generator().manual_seed(SEED + 33), log_fn=_quiet)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ref, ref_hist = conv(4, mesh, f"{d}/ref")
+        _, a_hist = conv(2, mesh, f"{d}/ab")
+        resumed, b_hist = conv(4, shrink_mesh(mesh, 1), f"{d}/ab")
+    require(a_hist["loss"] == ref_hist["loss"][:2]
+            and b_hist["loss"] == ref_hist["loss"][2:]
+            and all(torch.equal(a, b) for a, b in zip(resumed, ref)),
+            "conv SNN checkpointed on the 2-way mesh and resumed on 1 equals "
+            "the uninterrupted run bit for bit")
+    pruned, _ = prune_pytree(ref, 0.5)
+    mapped = map_model(layer_specs(pruned, CIFAR_CONV), ACCEL_2,
+                       lif=CIFAR_CONV.lif)
+    clips = [cspikes[i] for i in range(4)]
+    res = run_bucketed(mapped.pack(device=home), clips, mesh=mesh,
+                       policy=BucketPolicy(batch_sizes=(4,),
+                                           time_steps=(CIFAR_CONV.num_steps,)))
+    require(all(oracle_equal(r, run(mapped, c)) for r, c in zip(res, clips)),
+            "trained conv SNN served across the mesh equals the oracle")
+    return dict(card=json.dumps(card), cifar_steps=3, cifar_batch=16,
+                grad_shards=mesh.size,
+                cifar_losses=[round(x, 6) for x in h_mesh["loss"]],
+                cifar_mesh_s=round(mesh_s, 3), cifar_one_s=round(one_s, 3),
+                cifar_step_ms_mesh=round(
+                    1e3 * float(np.median(h_mesh["step_time"])), 3),
+                cifar_step_ms_one=round(
+                    1e3 * float(np.median(h_one["step_time"])), 3),
+                cifar_bit_exact=True, sync_free=True,
+                conv_losses=[round(x, 6) for x in ref_hist["loss"]],
+                conv_resume_bit_exact=True,
+                conv_out_spikes=[int(r.out_spikes.sum()) for r in res],
+                conv_oracle_equal=True)
+
+
+def phase_mesh(dev, card: str, mapped, routes: dict, streams
+               ) -> tuple[list, dict]:
+    """Phase 10: the data-parallel mesh (2-way; real where there are two
+    cards): the native-width CIFAR10-DVS MLP served on both routes, its
+    device-loss chaos scenarios, and data-parallel training.  Returns the
+    phase's lines and the launches of its main path (the dense and the
+    packed serving runs, counted from 0 each)."""
+    mesh = smoke_mesh(dev)
+    lines = [("mesh", dict(devices=",".join(str(d) for d in mesh.devices),
+                           real=mesh.real,
+                           cards=torch.cuda.device_count()))]
+    serve, counts = mesh_serve(mesh, mapped, routes, streams, card)
+    lines.append(("mesh_serve", serve))
+    lines.append(("mesh_chaos", mesh_chaos(mesh, routes["dense"], card)))
+    lines.append(("mesh_train", mesh_train(mesh, card)))
+    return lines, counts
+
+
 def device_ms_by_name(prof) -> dict:
     """Device time in ms of a profiler trace, summed by kernel name (the
     template arguments dropped) and by copy kind."""
@@ -1598,16 +1909,17 @@ def oracle_equal(r, oracle) -> bool:
             and r.energy() == oracle.energy)
 
 
-def drive(packed, streams, policy, telemetry=None):
-    """One counted run of the main path: the counts go to 0 just before it
-    and are read just after."""
+def drive(packed, streams, policy, telemetry=None, mesh=None):
+    """One counted run of the main path (sharded over ``mesh`` when given):
+    the counts go to 0 just before it and are read just after."""
     from repro_torch.engine import run_bucketed
     from repro_torch.kernels import _build
-    torch.cuda.synchronize()
+    sync_all()
     _build.reset_launches()
     t0 = time.perf_counter()
-    res = run_bucketed(packed, streams, policy=policy, telemetry=telemetry)
-    torch.cuda.synchronize()
+    res = run_bucketed(packed, streams, policy=policy, telemetry=telemetry,
+                       mesh=mesh)
+    sync_all()
     seconds = time.perf_counter() - t0
     return res, dict(_build.launches), seconds
 
@@ -1625,7 +1937,7 @@ def main() -> int:
                                                   CIFAR_DATA, CIFAR_SNN,
                                                   NMNIST_DATA, NMNIST_SNN)
     from repro_torch.core.accelerator import map_model, run
-    from repro_torch.engine import BatchPlan, BucketPolicy, plan_batches
+    from repro_torch.engine import BatchPlan
     from repro_torch.kernels import _build
 
     card = subprocess.run(
@@ -1651,26 +1963,12 @@ def main() -> int:
     phase_s["build"] = lap()
 
     # the CIFAR10-DVS MLP at native width, on Accel_2
-    rng = np.random.default_rng(SEED)
-    streams = make_requests(rng, CIFAR_DATA, N_REQUESTS)
-    policy = BucketPolicy(batch_sizes=(4, 8), time_steps=(16, 32))
-    plans = plan_batches([s.shape[0] for s in streams], policy)
-    big = max(plans, key=lambda p: p.b_pad * p.t_pad)
-    x_big = padded(streams, big, CIFAR_SNN.layer_sizes[0], dev)
-    ws = pruned_mlp(np.random.default_rng(SEED + 1), CIFAR_SNN.layer_sizes)
-    gain = pick_gain(ws, x_big, CIFAR_SNN.lif)
-    ws = [w * np.float32(gain) for w in ws]
-    t0 = time.perf_counter()
-    mapped = map_model(ws, ACCEL_2, lif=CIFAR_SNN.lif)
-    map_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    dense = mapped.pack(device=dev)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    pack_mib = (torch.cuda.memory_allocated() - mem0) / 2**20
-    packed = mapped.pack(packed_ops=True, device=dev)
+    m = cifar_model(dev)
+    streams, policy, plans, big = (m["streams"], m["policy"], m["plans"],
+                                   m["big"])
+    x_big, ws, gain, mapped = m["x_big"], m["ws"], m["gain"], m["mapped"]
+    dense, packed = m["dense"], m["packed"]
+    map_s, pack_s, pack_mib = m["map_s"], m["pack_s"], m["pack_mib"]
     log("map", model="cifar10_dvs", sizes=list(CIFAR_SNN.layer_sizes),
         accel=ACCEL_2.name, gain=gain, map_s=round(map_s, 2),
         pack_s=round(pack_s, 2), pack_mib=round(pack_mib, 1),
@@ -1792,11 +2090,23 @@ def main() -> int:
     kernels.append(spk_row)
     for row in kernels:
         row["train_launches"] = counts_train[row["name"]]
+
+    # 10. mesh: the data-parallel mesh, serving, device loss and training
+    mesh_lines, counts_mesh = phase_mesh(
+        dev, card, mapped, {"dense": dense, "packed": packed}, streams)
+    for name, fields in mesh_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["mesh_launches"] = (
+            counts_mesh["packed"] if row["name"] == "event_synapse_packed"
+            else counts_mesh["dense"])[row["name"]]
+    phase_s["mesh"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
-            "train_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape", "on_path")
+            "train_launches", "mesh_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))

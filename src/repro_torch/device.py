@@ -40,3 +40,22 @@ def exact_float32(device):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index made explicit: a bare ``"cuda"`` is the
+    current card (``cuda:N``), so that two names of one card compare
+    equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_guard(device):
+    """A context that makes ``device`` current for CUDA launches and
+    allocations (``torch.cuda.device``); nothing to do on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

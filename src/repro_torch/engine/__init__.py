@@ -1,5 +1,5 @@
-"""Batched engine, bucketed serving front end, always-on serving fabric and
-SNN training engine of the port."""
+"""Batched engine, its data-parallel mesh, bucketed serving front end,
+always-on serving fabric and SNN training engine of the port."""
 
 from repro_torch.engine.batched_run import (  # noqa: F401
     BatchedDispatchStats,
@@ -22,7 +22,15 @@ from repro_torch.engine.serving import (  # noqa: F401
     plan_batches,
     run_bucketed,
 )
-from repro_torch.engine.sharded_run import DeviceLossError  # noqa: F401
+from repro_torch.engine.sharded_run import (  # noqa: F401
+    DeviceLossError,
+    ServeMesh,
+    batch_spec,
+    n_batch_shards,
+    run_sharded,
+    shrink_mesh,
+    snn_serve_mesh,
+)
 from repro_torch.engine.tracing import (  # noqa: F401
     ANOMALY_KINDS,
     HIST_KEYS,
@@ -73,5 +81,6 @@ from repro_torch.engine.snn_train import (  # noqa: F401
     SNNTrainConfig,
     make_snn_train_step,
     model_for,
+    snn_train_mesh,
     train_snn_model,
 )

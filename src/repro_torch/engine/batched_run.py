@@ -3,7 +3,7 @@
 The numpy :func:`repro_torch.core.accelerator.run` is the cycle-accurate
 oracle: it walks timesteps, rounds, MEM_S&N rows and engines in Python.
 This module executes the *same* mapped model — the same control-memory
-content — as batched tensor code on one device:
+content — as batched tensor code on a device:
 
   * :func:`pack_model` turns a :class:`MappedModel` into a
     :class:`PackedModel`: per layer, the effective weights of every round,
@@ -29,6 +29,10 @@ aggregates match it field for field.  Events are emitted in ascending
 source order, the oracle's accumulation order, and every float32 add and
 multiply is rounded on its own, so even the partial sums agree.
 
+:mod:`repro_torch.engine.sharded_run` runs the same forward per batch
+shard on the devices of a mesh, each on the model's replica there
+(:meth:`PackedModel.replica`).
+
 Data layout:
 
   PackedModel.layers[l].rounds[r]          host geometry + stats vectors
@@ -51,7 +55,7 @@ from repro_torch.core.energy import (FRAME_CYCLES, AcceleratorSpec,
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.memories import DispatchStats, stats_vectors
 from repro_torch.core.quant import check_bits, lanes_per_byte, pack_signmag
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical_device, resolve_device
 from repro_torch.kernels import ops
 
 # The reference's Pallas dest tile: kept for the padded widths, so that
@@ -114,10 +118,20 @@ class PackedModel:
     spec: AcceleratorSpec | None = None
     block_d: int = DEFAULT_BLOCK_D
     device: torch.device = torch.device("cpu")
-    # one reusable input buffer per (B, T) shape served with donate on;
-    # not an init field, so dataclasses.replace starts a model afresh
+    # one reusable input buffer per (B, T) shape served with donate on
+    # (per (shard, B, T) on the sharded path); not an init field, so
+    # dataclasses.replace starts a model afresh
     input_buffers: dict = dataclasses.field(default_factory=dict,
                                             init=False, repr=False)
+    # this model's copies on other devices (the sharded path), one per
+    # device, made on first use
+    replicas: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False)
+
+    def __post_init__(self):
+        # the index made explicit: a bare ``cuda`` would name whichever
+        # card is current (under a shard's device guard, the shard's)
+        self.device = canonical_device(self.device)
 
     @property
     def n_in(self) -> int:
@@ -126,6 +140,36 @@ class PackedModel:
     @property
     def n_out(self) -> int:
         return self.layers[-1].n_dest
+
+    def replica(self, device) -> "PackedModel":
+        """This model on ``device``: itself where it already lives, else a
+        copy of its device tensors there (host geometry shared), made once
+        per device and cached."""
+        dev = canonical_device(device)
+        if dev == self.device:
+            return self
+        rep = self.replicas.get(dev)
+        if rep is None:
+            layers = [dataclasses.replace(
+                l, **{f: getattr(l, f).to(dev)
+                      for f in ("w_fused", "w_packed", "scale")
+                      if getattr(l, f) is not None}) for l in self.layers]
+            rep = self.replicas[dev] = PackedModel(
+                layers=layers, lif=self.lif, spec=self.spec,
+                block_d=self.block_d, device=dev)
+        return rep
+
+    def drop_devices(self, keep, n_shards: int) -> None:
+        """Forget what the sharded path holds beyond a mesh of ``n_shards``
+        shards over the devices ``keep``: the replicas on other devices,
+        and the input buffers of shards at or past ``n_shards``."""
+        keep = {canonical_device(d) for d in keep}
+        for dev in [d for d in self.replicas if d not in keep]:
+            del self.replicas[dev]
+        for model in (self, *self.replicas.values()):
+            for key in [k for k in model.input_buffers
+                        if len(k) == 3 and k[0] >= n_shards]:
+                del model.input_buffers[key]
 
 
 def _pack_layer_codes(layer, w_host: np.ndarray, bits: int, device
@@ -263,16 +307,24 @@ def _signature(packed: PackedModel) -> tuple:
 
 
 def _note_shape(packed: PackedModel, b: int, t: int,
-                max_events: int | None, donated: bool = False) -> None:
+                max_events: int | None, donated: bool = False,
+                mesh=None) -> None:
+    """Count a first call of this shape: kind ``"batched"``, or
+    ``"sharded"`` with the mesh's devices in the key (the reference's
+    sharded jit caches per mesh)."""
     global _trace_count
     key = (_signature(packed), b, t, max_events)
+    kind = "batched"
+    if mesh is not None:
+        kind = "sharded"
+        key = (kind, tuple(str(d) for d in mesh.devices), *key)
     if key in _seen_shapes:
         return
     _seen_shapes.add(key)
     _trace_count += 1
     for fn in list(_trace_listeners):
         try:
-            fn("batched", donated)
+            fn(kind, donated)
         except Exception:
             pass
 
@@ -286,17 +338,19 @@ def should_donate(donate: bool | None, device="cuda") -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _upload(packed: PackedModel, host: np.ndarray,
-            donate: bool) -> torch.Tensor:
+def _upload(packed: PackedModel, host: np.ndarray, donate: bool,
+            shard: int | None = None) -> torch.Tensor:
     """The input raster on the model's device: with ``donate`` on, copied
-    into the model's buffer for this ``(B, T)`` shape, made on first use;
-    else a new tensor."""
+    into the model's buffer for this ``(B, T)`` shape (``(shard, B, T)``
+    for a shard of the sharded path, so that two shards never share one),
+    made on first use; else a new tensor."""
     src = torch.from_numpy(host)
     if not donate:
         return src.to(packed.device)
-    buf = packed.input_buffers.get(host.shape[:2])
+    key = host.shape[:2] if shard is None else (shard, *host.shape[:2])
+    buf = packed.input_buffers.get(key)
     if buf is None:
-        buf = packed.input_buffers[host.shape[:2]] = torch.empty(
+        buf = packed.input_buffers[key] = torch.empty(
             host.shape, dtype=torch.float32, device=packed.device)
     return buf.copy_(src)
 
@@ -475,7 +529,8 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     """
     if isinstance(model, PackedModel):
         packed = model
-        if device is not None and resolve_device(device) != packed.device:
+        if (device is not None
+                and canonical_device(resolve_device(device)) != packed.device):
             raise ValueError(f"model is packed on {packed.device}, "
                              f"not {device}")
     else:

@@ -16,8 +16,9 @@ reference's scenarios unchanged (``tests/test_torch_chaos.py``):
   * :class:`ChaosScenario` + :data:`SCENARIOS` — named, fully-parameterized
     failure scripts: device loss mid-serving (via :func:`make_chaos_hook`
     raising :class:`~repro_torch.engine.sharded_run.DeviceLossError` at
-    scripted dispatch ordinals; these need a mesh and are refused on one
-    device), serving-time analog noise
+    scripted dispatch ordinals; these need a mesh of at least 2 devices,
+    real or spoofed, and the server recovers onto the survivors),
+    serving-time analog noise
     (:class:`~repro_torch.core.noise.AnalogNoise` through the server's
     shadow probes), SLO-driven shed-vs-extend switching
     (:class:`~repro_torch.engine.stream_server.SLOPolicy`), and the
@@ -267,7 +268,7 @@ SCENARIOS: dict[str, ChaosScenario] = {s.name: s for s in (
 )}
 
 
-def run_scenario(model, scenario: ChaosScenario, *,
+def run_scenario(model, scenario: ChaosScenario, *, mesh=None,
                  policy: BucketPolicy | None = None, recorder=None):
     """Replay one scenario deterministically on a :class:`VirtualClock`.
 
@@ -277,55 +278,68 @@ def run_scenario(model, scenario: ChaosScenario, *,
     the scenario script — so two runs of the same scenario produce
     bit-identical results and metrics (tested).  Returns ``(results, rids,
     metrics)`` where ``metrics`` is the ``ServerMetrics`` snapshot plus
-    scenario bookkeeping (name, mesh sizes — 1 and 1 on one device —,
+    scenario bookkeeping (name, mesh sizes — 1 and 1 without a mesh —,
     makespan, admitted-served accounting).  A mapped model is packed onto
-    the card; pass a packed model to serve elsewhere.  Scenarios that
-    script device loss need a mesh of at least 2 devices and raise
-    ``ValueError`` here, as the reference refuses them without one.
+    the mesh's first device, else the card; pass a packed model to serve
+    elsewhere.  ``mesh`` serves every dispatch sharded over it (bucket
+    batches rounded to its size).  Scenarios that script device loss need
+    a mesh of at least 2 devices (``snn_serve_mesh(spoof=2)`` on one
+    device) and raise ``ValueError`` without one, as the reference refuses
+    them.
 
     ``recorder`` (a :class:`~repro_torch.engine.tracing.FlightRecorder`) attaches
     the span tracer to the replay: every injected fault then lands as a
     typed anomaly and, because the replay runs on a VirtualClock, two
     replays of the same scenario produce byte-identical
     ``recorder.dump_json()``."""
-    packed = model if isinstance(model, br.PackedModel) else model.pack()
-    if scenario.needs_mesh:
+    packed = model if isinstance(model, br.PackedModel) else model.pack(
+        device=mesh.devices[0] if mesh is not None else "cuda")
+    if scenario.needs_mesh and (mesh is None or mesh.size < 2):
         raise ValueError(
-            f"scenario {scenario.name!r} scripts device loss — it needs a "
-            f">= 2-device mesh, and serving here is single-device")
+            f"scenario {scenario.name!r} scripts device loss — run it on a "
+            f">= 2-device mesh (snn_serve_mesh(spoof=N) on one device)")
     if scenario.tenants:
-        return _run_multi_tenant(packed, scenario, policy=policy,
+        return _run_multi_tenant(packed, scenario, mesh=mesh, policy=policy,
                                  recorder=recorder)
     trace = synth_arrival_trace(
         scenario.n_requests, packed.n_in, mode=scenario.arrivals,
         rate=scenario.rate, slack=scenario.slack, t_lo=scenario.t_lo,
         t_hi=scenario.t_hi, seed=scenario.seed)
+    n_shards = mesh.size if mesh is not None else 1
     if policy is None:
         policy = BucketPolicy.covering([s.shape[0] for _, s, _ in trace],
-                                       max_batch=4)
+                                       n_shards=n_shards,
+                                       max_batch=4 * n_shards)
     noise = (AnalogNoise(weight_sigma=scenario.noise_sigma)
              if scenario.noise_sigma > 0 else None)
     server = StreamServer(
-        packed, policy=policy, clock=VirtualClock(),
+        packed, policy=policy, mesh=mesh, clock=VirtualClock(),
         queue_capacity=scenario.queue_capacity,
         backpressure=scenario.backpressure, overlong=scenario.overlong,
         service_model=lambda b, t: scenario.service_s,
         noise=noise, noise_key=scenario.seed,
         noise_probe_every=scenario.noise_probe_every, slo=scenario.slo,
-        tracer=recorder)
+        chaos_hook=_hook(scenario), tracer=recorder)
     results, rids = serve_trace(server, trace)
-    return results, rids, _scenario_metrics(server, scenario, len(trace))
+    return results, rids, _scenario_metrics(server, scenario, len(trace),
+                                            mesh)
+
+
+def _hook(scenario: ChaosScenario):
+    return (make_chaos_hook(scenario.lose_devices)
+            if scenario.lose_devices else None)
 
 
 def _scenario_metrics(server: StreamServer, scenario: ChaosScenario,
-                      n_requests: int) -> dict:
+                      n_requests: int, mesh) -> dict:
     snap = server.metrics.snapshot()
     snap.update({
         "scenario": scenario.name,
         "requests": n_requests,
         "served_all_admitted": snap["completed"] == snap["admitted"],
-        "mesh_size_start": 1,
-        "mesh_size_end": 1,
+        "mesh_size_start": mesh.size if mesh is not None else 1,
+        "mesh_size_end": (server.mesh.size if server.mesh is not None
+                          else 1),
         "makespan_s": server.now(),
     })
     return snap
@@ -341,13 +355,14 @@ def swap_model_for(packed, scenario: ChaosScenario):
                           AnalogNoise(weight_sigma=scenario.swap_sigma))
 
 
-def _run_multi_tenant(packed, scenario: ChaosScenario, *,
+def _run_multi_tenant(packed, scenario: ChaosScenario, *, mesh,
                       policy: BucketPolicy | None, recorder=None):
     """The multi-tenant leg of :func:`run_scenario`: every tenant serves
     the scenario model as its own registry entry (per-tenant covering
     bucket policy), the merged per-tenant traces replay on one fabric, and
     ``swap_tenant`` is hot-swapped to :func:`swap_model_for`'s weights at
     ``swap_at`` via a serve_trace control event."""
+    n_shards = mesh.size if mesh is not None else 1
     registry = ModelRegistry()
     tagged = []
     for spec in scenario.tenants:
@@ -356,7 +371,8 @@ def _run_multi_tenant(packed, scenario: ChaosScenario, *,
             slack=spec.slack, t_lo=spec.t_lo, t_hi=spec.t_hi,
             seed=scenario.seed + spec.seed_offset)
         p = policy if policy is not None else BucketPolicy.covering(
-            [s.shape[0] for _, s, _ in trace], max_batch=4)
+            [s.shape[0] for _, s, _ in trace], n_shards=n_shards,
+            max_batch=4 * n_shards)
         registry.register(spec.name, packed, policy=p, weight=spec.weight)
         tagged.extend((t, s, d, spec.name) for t, s, d in trace)
     tagged.sort(key=lambda e: e[0])     # stable: ties keep tenant order
@@ -366,11 +382,12 @@ def _run_multi_tenant(packed, scenario: ChaosScenario, *,
         control.append((scenario.swap_at,
                         lambda srv: srv.swap(scenario.swap_tenant, swapped)))
     server = StreamServer(
-        registry, clock=VirtualClock(),
+        registry, mesh=mesh, clock=VirtualClock(),
         queue_capacity=scenario.queue_capacity,
         backpressure=scenario.backpressure, overlong=scenario.overlong,
         service_model=lambda b, t: scenario.service_s,
         noise_probe_every=scenario.noise_probe_every, slo=scenario.slo,
-        tracer=recorder)
+        chaos_hook=_hook(scenario), tracer=recorder)
     results, rids = serve_trace(server, tagged, control=control)
-    return results, rids, _scenario_metrics(server, scenario, len(tagged))
+    return results, rids, _scenario_metrics(server, scenario, len(tagged),
+                                            mesh)

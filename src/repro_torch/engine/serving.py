@@ -15,8 +15,12 @@ therefore bit-identical to running that request alone at its native shape,
 and hence to the numpy oracle (tested, ``tests/test_torch_serving.py``).
 
 At most ``policy.n_buckets`` distinct shapes ever reach the engine,
-verified through the ``trace_count()`` probe.  Single device: the engine
-runs on the device of the packed model.
+verified through the ``trace_count()`` probe.  Without a mesh the engine
+runs on the device of the packed model; ``mesh=`` routes every engine call
+through :func:`~repro_torch.engine.sharded_run.run_sharded`, and the
+policy's batch buckets are then rounded to multiples of the mesh's size
+(:meth:`BucketPolicy.covering`, :meth:`BucketPolicy.for_mesh`) so that
+every bucket splits evenly.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import numpy as np
 
 from repro_torch.core.energy import FRAME_CYCLES, EnergyReport, energy_model
 from repro_torch.core.memories import DispatchStats
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical_device, resolve_device
 from repro_torch.engine import batched_run as br
+from repro_torch.engine.sharded_run import run_sharded
 
 _log = logging.getLogger(__name__)
 
@@ -118,10 +123,12 @@ class BucketPolicy:
         return next(bb for bb in self.batch_sizes if b <= bb)
 
     @classmethod
-    def covering(cls, lengths, *, max_batch: int = 16) -> "BucketPolicy":
+    def covering(cls, lengths, *, n_shards: int = 1,
+                 max_batch: int = 16) -> "BucketPolicy":
         """A policy whose time buckets are the powers of two covering the
         observed request ``lengths`` and whose batch buckets are powers of
-        four up to ``max_batch``."""
+        four up to ``max_batch``, each rounded up to a multiple of
+        ``n_shards`` (so every bucket splits evenly on the serving mesh)."""
         t_max = max(int(t) for t in lengths)
         steps, t = [], 1
         while t < t_max:
@@ -131,11 +138,21 @@ class BucketPolicy:
                 steps.append(tb)
         bs, b = [], 1
         while b < max_batch:
-            bs.append(b)
+            bs.append(_round_up(b, n_shards))
             b *= 4
-        bs.append(max_batch)
+        bs.append(_round_up(max_batch, n_shards))
         return cls(batch_sizes=tuple(sorted(set(bs))),
                    time_steps=tuple(sorted(set(steps))))
+
+    @classmethod
+    def for_mesh(cls, n_shards: int,
+                 batch_sizes: tuple[int, ...] = (1, 4, 16),
+                 time_steps: tuple[int, ...] = (8, 16, 32)) -> "BucketPolicy":
+        """Every batch bucket rounded up to a multiple of the mesh's size,
+        so that ``run_sharded`` always gets a divisible batch."""
+        return cls(batch_sizes=tuple(sorted({_round_up(b, n_shards)
+                                             for b in batch_sizes})),
+                   time_steps=tuple(time_steps))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +241,7 @@ TELEMETRY_KEYS = ("seq", "ts", "b_pad", "t_pad", "n_requests", "events",
 
 
 def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
-                 max_events: int | None = None,
+                 mesh=None, max_events: int | None = None,
                  sn_capacity_rows: int | None = None,
                  with_stats: bool = True,
                  donate: bool | None = None,
@@ -233,7 +250,8 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
                  ) -> tuple[list[RequestResult], dict]:
     """One engine call: zero-pad ``plan``'s requests into the plan's
     ``(b_pad, t_pad)`` bucket, run on the packed model's device, and slice
-    each request's bit-exact result back out.
+    each request's bit-exact result back out; ``mesh`` runs the call
+    sharded over it (:func:`~repro_torch.engine.sharded_run.run_sharded`).
 
     The single execution path shared by :func:`run_bucketed` and the
     always-on :class:`~repro_torch.engine.stream_server.StreamServer`.
@@ -260,9 +278,14 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
         span_log.append(("pad", t_pad0, clock(),
                          {"b_pad": plan.b_pad, "t_pad": plan.t_pad}))
     t0 = time.perf_counter()
-    res = br.run_batched(packed, padded, max_events=max_events,
-                         sn_capacity_rows=sn_capacity_rows,
-                         with_stats=with_stats, donate=donate)
+    if mesh is None:
+        res = br.run_batched(packed, padded, max_events=max_events,
+                             sn_capacity_rows=sn_capacity_rows,
+                             with_stats=with_stats, donate=donate)
+    else:
+        res = run_sharded(packed, padded, mesh=mesh, max_events=max_events,
+                          sn_capacity_rows=sn_capacity_rows,
+                          with_stats=with_stats, donate=donate)
     dt = time.perf_counter() - t0
     record = {
         "seq": int(seq),
@@ -285,7 +308,7 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
 
 
 def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
-                 max_events: int | None = None,
+                 mesh=None, max_events: int | None = None,
                  sn_capacity_rows: int | None = None,
                  with_stats: bool = True,
                  telemetry: list | None = None,
@@ -297,12 +320,17 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
     through the bucketed engine; results come back in request order.
 
     A :class:`~repro_torch.engine.batched_run.PackedModel` serves on its own
-    device; a mapped model is packed onto ``device`` first (default the
-    card — with no card, pass ``device="cpu"``).
+    device (replicated onto the mesh's devices under ``mesh``); a mapped
+    model is packed onto ``device`` first (default the mesh's first device,
+    else the card — with no card, pass ``device="cpu"``).
 
     ``policy`` defaults to :meth:`BucketPolicy.covering` over the observed
-    lengths.  ``telemetry``, if a list, receives one dict per engine call
-    (padded shape, request count, events served, wall seconds).
+    lengths (rounded to the mesh's size when ``mesh`` is given).  ``mesh``
+    routes every engine call through
+    :func:`~repro_torch.engine.sharded_run.run_sharded`; ``None`` serves on
+    the model's device.  ``telemetry``, if a list, receives one dict per
+    engine call (padded shape, request count, events served, wall
+    seconds).
 
     ``overlong`` governs requests longer than the policy's largest time
     bucket, checked at admission (before any engine work): ``"error"``
@@ -322,11 +350,14 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
                          f"got {overlong!r}")
     if isinstance(model, br.PackedModel):
         packed = model
-        if device is not None and resolve_device(device) != packed.device:
+        if (device is not None
+                and canonical_device(resolve_device(device)) != packed.device):
             raise ValueError(f"model is packed on {packed.device}, "
                              f"not {device}")
     else:
-        packed = model.pack(device="cuda" if device is None else device)
+        if device is None:
+            device = mesh.devices[0] if mesh is not None else "cuda"
+        packed = model.pack(device=device)
     if noise is not None:
         from repro_torch.core.noise import as_noise_key, perturb_packed
         packed = perturb_packed(as_noise_key(noise_key), packed, noise)
@@ -339,7 +370,8 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
         return []
     lengths = [s.shape[0] for s in streams]
     if policy is None:
-        policy = BucketPolicy.covering(lengths)
+        policy = BucketPolicy.covering(
+            lengths, n_shards=mesh.size if mesh is not None else 1)
     over = [(i, t) for i, t in enumerate(lengths) if not policy.fits(t)]
     if over:
         if overlong == "error":
@@ -351,7 +383,7 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
                      len(over), policy.time_steps)
     results: list[RequestResult | None] = [None] * len(streams)
     for seq, plan in enumerate(plan_batches(lengths, policy)):
-        reqs, record = execute_plan(packed, streams, plan,
+        reqs, record = execute_plan(packed, streams, plan, mesh=mesh,
                                     max_events=max_events,
                                     sn_capacity_rows=sn_capacity_rows,
                                     with_stats=with_stats, donate=donate,

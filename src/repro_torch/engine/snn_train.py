@@ -14,16 +14,24 @@ through the same machinery as any other model of the repository:
 Bit-exactness contract: the gradient of a step is *defined* as a
 fixed-order left fold over ``grad_shards`` contiguous batch chunks of
 per-chunk gradients, scaled by ``1/K`` — the reference's definition, so a
-run's arithmetic does not depend on how its chunks are scheduled.  On the
-card the products run with TF32 off and cuDNN's deterministic algorithms
+run's arithmetic does not depend on how its chunks are scheduled.  The
+mesh (:func:`snn_train_mesh`, the serving mesh: an ordered tuple of
+devices driven by this one process) only decides *where* chunks are
+computed: shard ``s`` evaluates its contiguous chunks on its device with a
+replica of the parameters, the per-chunk results are gathered onto the
+mesh's first device in shard order (= global chunk order) and folded left
+to right there, and Adam runs there once, the new parameters copied out to
+the other devices.  Training over a mesh is therefore bit-exact with
+single-device training at the same ``grad_shards`` and data order, and a
+checkpoint written on an 8-way mesh resumes on a 4-way mesh onto the same
+trajectory (tested, ``tests/test_torch_snn_train.py``).  ``grad_shards``
+defaults to the mesh's split of the batch (1 without a mesh).  On the card
+the products run with TF32 off and cuDNN's deterministic algorithms
 (:func:`repro_torch.device.exact_float32`), so a run, and a run resumed
 from a checkpoint, repeat bit for bit.
 
 What the reference has and this module leaves out:
 
-  * ``mesh``, ``snn_train_mesh`` and ``_batch_split`` — data-parallel
-    training over several devices; one device trains here (multi-GPU is
-    later work, on ``torch.distributed``).
   * ``donate`` — PyTorch has no buffer donation.  The step builds new
     tensors and never writes into the caller's parameters, so there is
     nothing to copy either.
@@ -38,6 +46,7 @@ metrics in one transfer.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Callable, Protocol, runtime_checkable
 
@@ -45,13 +54,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.device import exact_float32, resolve_device
+from repro_torch.device import (canonical_device, device_guard, exact_float32,
+                                resolve_device)
+from repro_torch.engine.sharded_run import (ServeMesh, n_batch_shards,
+                                            snn_serve_mesh)
 from repro_torch.engine.train_loop import (TrainLoopConfig, init_train_state,
                                            resume_or_init, train_loop)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.snn import conv as _conv
 from repro_torch.snn import mlp as _mlp
 
+_log = logging.getLogger(__name__)
 
 # ------------------------------------------------------------ model protocol
 
@@ -137,9 +150,11 @@ class SNNTrainConfig:
     The defaults are the paper's Table-I Adam (lr=1e-3, b2=0.999, no weight
     decay, no clipping, constant rate).  ``lr`` may be a schedule
     ``step -> rate``; it reaches the step as a 0-d tensor in the batch.
-    ``grad_shards`` fixes the gradient's chunked fold (module docstring).
-    ``checkpoint_dir`` ``None`` trains ephemerally (no checkpoint I/O); a
-    path makes training resume-aware across restarts.
+    ``grad_shards`` fixes the gradient's chunked fold (module docstring;
+    ``None``: the mesh's split of the batch, 1 without a mesh); ``mesh``
+    spreads the chunks over its devices.  ``checkpoint_dir`` ``None``
+    trains ephemerally (no checkpoint I/O); a path makes training
+    resume-aware across restarts and mesh sizes.
     """
 
     steps: int = 100
@@ -150,7 +165,8 @@ class SNNTrainConfig:
     weight_decay: float = 0.0
     grad_clip: float = math.inf
     warmup_steps: int = 1
-    grad_shards: int = 1
+    mesh: ServeMesh | None = None
+    grad_shards: int | None = None
     checkpoint_dir: str | None = None
     checkpoint_every: int = 100
     keep_checkpoints: int = 3
@@ -165,10 +181,25 @@ class SNNTrainConfig:
                            warmup_steps=self.warmup_steps)
 
 
+def snn_train_mesh(n_data: int | None = None, **kw) -> ServeMesh:
+    """The training mesh: literally the serving topology
+    (:func:`repro_torch.engine.sharded_run.snn_serve_mesh`, same keywords),
+    so training and serving can never drift onto different meshes."""
+    return snn_serve_mesh(n_data, **kw)
+
+
+def _batch_split(mesh: ServeMesh, dims) -> int:
+    """How many ways the training rule splits a ``[T, B, n_in]`` spike
+    batch on ``mesh``: the mesh's size when it divides ``B``, else 1
+    (replicated), the serving rule's graceful degradation."""
+    return n_batch_shards(mesh, dims[1])
+
+
 # ---------------------------------------------------------------- train step
 
 def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
-                        grad_shards: int = 1):
+                        mesh: ServeMesh | None = None,
+                        grad_shards: int | None = None):
     """Build the step ``(state_tree, batch) -> (state_tree, metrics)`` for
     :func:`repro_torch.engine.train_loop.train_loop`.
 
@@ -176,10 +207,21 @@ def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
     tensors on the parameters' device (``lr`` optional — the dynamic base
     rate for :func:`adamw_update`).  The gradient is the fixed-order
     chunked fold of the module docstring: ``K = grad_shards`` contiguous
-    chunks of the batch, each chunk's loss, accuracy and gradient of the
-    model's mean loss, summed left to right and scaled by ``1/K``.
+    chunks of the batch (default the mesh's split of ``B``, 1 without a
+    mesh), each chunk's loss, accuracy and gradient of the model's mean
+    loss, summed left to right and scaled by ``1/K``.  With a mesh that
+    splits the batch ``n`` ways, shard ``s`` computes chunks ``s K/n`` to
+    ``(s + 1) K/n - 1`` on ``mesh.devices[s]`` from a replica of the
+    parameters (copied there once per step); ``K`` must then be a multiple
+    of ``n``, else the step trains on the first device alone, with a
+    warning, as it does when the batch does not split.
     """
-    k = grad_shards
+    warned: set = set()
+
+    def warn(key, msg, *args):
+        if key not in warned:       # once per batch shape, as a trace would
+            warned.add(key)
+            _log.warning(msg, *args)
 
     def chunk(params, spikes, labels):
         leaves = [p.detach().requires_grad_(True)
@@ -192,15 +234,47 @@ def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
 
     def step(state: dict, batch: dict):
         spikes, labels = batch["spikes"], batch["labels"]
-        b = spikes.shape[1]
+        t, b, n_in = spikes.shape
+        n_split = _batch_split(mesh, (t, b, n_in)) if mesh is not None else 1
+        k = n_split if grad_shards is None else grad_shards
         if b % k:
             raise ValueError(
                 f"batch {b} not divisible into grad_shards={k} chunks")
+        # graceful fallbacks replicate instead of failing, but not
+        # silently: a user who built a mesh expects data parallelism
+        if k % n_split:
+            warn(("k", b), "snn_train: grad_shards=%d is not a multiple of "
+                 "the mesh's %d-way batch split — training replicated on "
+                 "one device instead of data-parallel", k, n_split)
+            n_split = 1
+        elif mesh is not None and mesh.size > 1 and n_split == 1:
+            warn(("b", b), "snn_train: batch %d does not split over the "
+                 "%d-device mesh — training replicated on one device "
+                 "instead of data-parallel", b, mesh.size)
         size = b // k
+        per_shard = k // n_split
+        home = canonical_device(spikes.device)
+        # the parameters on each distinct device of the split, copied once
+        replicas = {home: state["params"]}
+        parts = []
+        for s in range(n_split):
+            dev = mesh.devices[s] if n_split > 1 else home
+            lo = s * per_shard * size
+            with device_guard(dev):
+                if dev not in replicas:
+                    replicas[dev] = tree_map(lambda p: p.to(dev),
+                                             state["params"])
+                sp = spikes[:, lo:lo + per_shard * size].to(dev)
+                lb = labels[lo:lo + per_shard * size].to(dev)
+                for i in range(per_shard):
+                    parts.append(chunk(replicas[dev],
+                                       sp[:, i * size:(i + 1) * size],
+                                       lb[i * size:(i + 1) * size]))
+        # gather onto the first device in shard (= chunk) order, then one
+        # left fold there, exactly as the single-device fold adds
         total = None
-        for i in range(k):
-            part = chunk(state["params"], spikes[:, i * size:(i + 1) * size],
-                         labels[i * size:(i + 1) * size])
+        for part in parts:
+            part = [x.to(home) for x in part]
             total = part if total is None else [
                 u + v for u, v in zip(total, part)]
         inv = 1.0 / k
@@ -216,6 +290,7 @@ def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
     return step
 
 
+
 # --------------------------------------------------------------- entry point
 
 def _upload(x, dtype, device) -> torch.Tensor:
@@ -228,9 +303,11 @@ def _upload(x, dtype, device) -> torch.Tensor:
 def train_snn_model(model: SNNModel, cfg, data_iter,
                     train_cfg: SNNTrainConfig, *,
                     key: torch.Generator | None = None, params=None,
-                    device="cuda", log_fn: Callable[[str], None] = print):
+                    device=None, log_fn: Callable[[str], None] = print):
     """Train an SNN family through the engine loop on ``device`` (default
-    the card; ``device="cpu"`` runs the plain PyTorch path).
+    the card; ``device="cpu"`` runs the plain PyTorch path), or over
+    ``train_cfg.mesh``, whose first device then holds the parameters, the
+    optimizer state and the batch (``device``, if given, must name it).
 
     ``data_iter`` is either a step-keyed callable ``step -> (spikes
     [T, B, n_in], labels [B])`` — the restart-safe form: resuming from a
@@ -246,7 +323,15 @@ def train_snn_model(model: SNNModel, cfg, data_iter,
     (``loss`` / ``acc`` / ``grad_norm`` / ``lr`` / ``step_time`` /
     ``stragglers`` / ``checkpoints``).
     """
-    dev = resolve_device(device)
+    mesh = train_cfg.mesh
+    if mesh is None:
+        dev = resolve_device("cuda" if device is None else device)
+    else:
+        dev = mesh.devices[0]
+        if device is not None and \
+                canonical_device(resolve_device(device)) != dev:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {dev}")
     if params is None:
         gen = key if key is not None else torch.Generator().manual_seed(0)
         params = model.init(gen, cfg, dev)
@@ -254,7 +339,7 @@ def train_snn_model(model: SNNModel, cfg, data_iter,
         params = tree_map(lambda p: _upload(p, torch.float32, dev), params)
     opt_cfg = train_cfg.adamw()
     state = init_train_state(None, params, opt_cfg).as_tree()
-    step_fn = make_snn_train_step(model, cfg, opt_cfg,
+    step_fn = make_snn_train_step(model, cfg, opt_cfg, mesh=mesh,
                                   grad_shards=train_cfg.grad_shards)
     if callable(data_iter):
         data = data_iter

@@ -49,9 +49,11 @@ front end for that stream:
   * **Chaos-ready.**  Production failure modes are first-class
     (:mod:`repro_torch.engine.chaos` drives them): a ``chaos_hook`` may
     raise :class:`~repro_torch.engine.sharded_run.DeviceLossError` at any
-    dispatch boundary — fatal here, since a single device has no mesh to
-    shrink onto; an :class:`SLOPolicy` flips between extend-biased
-    admission and shedding on the windowed deadline-miss rate; and
+    dispatch boundary and the server recovers onto the shrunken ``mesh``
+    (elastic serving: every admitted request is still served), while
+    without a mesh a device loss is fatal; an :class:`SLOPolicy` flips
+    between extend-biased admission and shedding on the windowed
+    deadline-miss rate; and
     ``noise=AnalogNoise(...)`` serves through one deterministic noisy
     device instance with periodic shadow probes against the clean model
     (the ``noise_agreement`` accuracy-under-noise metric).  Every scenario
@@ -80,6 +82,7 @@ from repro_torch.engine.registry import (DEFAULT_MODEL, ModelEntry,  # noqa: F40
                                          ModelRegistry, UnknownModelError)
 from repro_torch.engine.serving import (BatchPlan, BucketPolicy,
                                         RequestResult, execute_plan)
+from repro_torch.engine.sharded_run import DeviceLossError, shrink_mesh
 from repro_torch.engine.tracing import TIME_EDGES, FlightRecorder, Histogram
 
 _log = logging.getLogger(__name__)
@@ -242,7 +245,7 @@ class ServerMetrics:
     policy_extensions: int = 0
     queue_depth: int = 0
     max_queue_depth: int = 0
-    device_losses: int = 0          # mesh shrinks (none on one device)
+    device_losses: int = 0          # chaos/watchdog-reported mesh shrinks
     slo_switches: int = 0           # shed<->extend mode flips by the SLO loop
     slo_shedding: bool = False      # currently in degraded (shedding) mode
     noise_probes: int = 0           # requests shadow-checked vs clean model
@@ -364,11 +367,14 @@ class StreamServer:
     :class:`~repro_torch.engine.registry.ModelRegistry` (multi-tenant;
     policy and noise then live on the entries and the ``policy``/``noise``
     kwargs must stay unset).  :meth:`swap` hot-swaps a tenant's weights
-    live.  Serving is single-device: there is no ``mesh``.
+    live.  ``mesh`` (a :class:`~repro_torch.engine.sharded_run.ServeMesh`)
+    serves every dispatch sharded over its devices and makes a device loss
+    recoverable; ``None`` serves on the model's device, where a device loss
+    is fatal.
     """
 
     def __init__(self, model, *, policy: BucketPolicy | None = None,
-                 clock=None,
+                 mesh=None, clock=None,
                  queue_capacity: int = 256,
                  backpressure: str = "reject",
                  overlong: str = "reject",
@@ -411,9 +417,10 @@ class StreamServer:
         self._slo_misses: collections.deque = collections.deque(
             maxlen=slo.window if slo is not None else 1)
         # chaos_hook(dispatch_ordinal) runs at every dispatch boundary and
-        # may raise DeviceLossError — the soak harness's failure injection;
-        # on one device it is fatal and propagates
+        # may raise DeviceLossError — the soak harness's failure injection,
+        # mirroring train_loop's failure_hook
         self.chaos_hook = chaos_hook
+        self.mesh = mesh
         self.clock = clock if clock is not None else WallClock()
         self.queue_capacity = queue_capacity
         self.backpressure = backpressure
@@ -434,8 +441,9 @@ class StreamServer:
         # always-on server holds at most n_buckets input buffers per model
         # instead of allocating one per dispatch.  Default: on for a CUDA
         # model, off on the CPU.
-        self.donate = br.should_donate(donate,
-                                       self.registry.get().packed.device)
+        self.donate = br.should_donate(
+            donate, mesh.devices[0] if mesh is not None
+            else self.registry.get().packed.device)
         # on_rejection(Rejection) fires synchronously for every rejection
         # as it happens — the delivery channel for transports that must
         # answer displaced clients.
@@ -808,12 +816,46 @@ class StreamServer:
 
     # ------------------------------------------------------------ execution
 
+    def _recover_mesh(self, err: DeviceLossError) -> None:
+        """Elastic recovery at a dispatch boundary: shrink the serving mesh
+        to the survivors (the replicated models need no state movement),
+        forget the models' replicas on the lost devices, re-round every
+        tenant's batch buckets to the new shard count (time buckets — and
+        hence every queued request's ``t_pad`` — are preserved), and drop
+        service-time estimates measured on the dead topology, tenant by
+        tenant.  The serving twin of the train loop's elastic restart."""
+        if self.mesh is None:
+            raise err   # no mesh to shrink — a single-device loss is fatal
+        old = self.mesh.size
+        self.mesh = shrink_mesh(self.mesh, err.n_lost)   # raises if none left
+        for e in (*self._entries.values(),
+                  *map(self.registry.get, self.registry.names())):
+            for m in (e.packed, e.clean):
+                m.drop_devices(self.mesh.devices, self.mesh.size)
+        names = list(self.registry.names())
+        names += [n for n in self._policies if n not in names]
+        for name in names:
+            p = self._policy_for(name)
+            self._policies[name] = BucketPolicy.for_mesh(
+                self.mesh.size, batch_sizes=p.batch_sizes,
+                time_steps=p.time_steps)
+            self.clear_service_estimates(name)
+        self.metrics.device_losses += 1
+        if self.tracer is not None:
+            self.tracer.anomaly("device_loss", t=self.now(),
+                                n_lost=err.n_lost, mesh_from=old,
+                                mesh_to=self.mesh.size)
+        _log.warning("stream_server: lost %d device(s) mid-serving; "
+                     "recovered %d -> %d-way mesh, default batch buckets "
+                     "now %s (new engine shapes)", err.n_lost, old,
+                     self.mesh.size, self.policy.batch_sizes)
+
     def _execute(self, packed, streams: list, plan: BatchPlan, *,
                  seq: int = 0, ts: float | None = None,
                  span_log: list | None = None):
         return execute_plan(
             packed, streams, plan,
-            max_events=self.max_events,
+            mesh=self.mesh, max_events=self.max_events,
             sn_capacity_rows=self.sn_capacity_rows,
             with_stats=self.with_stats, donate=self.donate,
             seq=seq, ts=ts, now=self.now, span_log=span_log)
@@ -874,17 +916,26 @@ class StreamServer:
         streams = [r.stream for r in reqs]
         dispatch_t = self.now()
         tr = self.tracer
-        b_pad = self._policy_for(name).b_bucket(k)
-        plan = BatchPlan(indices=tuple(range(k)), b_pad=b_pad, t_pad=t_pad)
-        span_log = [] if tr is not None else None
-        # device loss surfaces here (from the chaos hook, or the runtime's
-        # watchdog in production); with a single device there is no mesh
-        # to recover onto, so the DeviceLossError propagates
-        if self.chaos_hook is not None:
-            self.chaos_hook(self.metrics.dispatches)
-        results, record = self._execute(
-            entry.packed, streams, plan,
-            seq=self.metrics.dispatches, ts=dispatch_t, span_log=span_log)
+        # device loss surfaces at the dispatch boundary (from the chaos
+        # hook here; from the runtime's watchdog in production); recovery
+        # shrinks the mesh and retries the same requests — requests are
+        # only lost to explicit shedding, never to hardware loss.  Without
+        # a mesh the DeviceLossError propagates.
+        while True:
+            b_pad = self._policy_for(name).b_bucket(k)
+            plan = BatchPlan(indices=tuple(range(k)), b_pad=b_pad,
+                             t_pad=t_pad)
+            span_log = [] if tr is not None else None
+            try:
+                if self.chaos_hook is not None:
+                    self.chaos_hook(self.metrics.dispatches)
+                results, record = self._execute(
+                    entry.packed, streams, plan,
+                    seq=self.metrics.dispatches, ts=dispatch_t,
+                    span_log=span_log)
+                break
+            except DeviceLossError as e:
+                self._recover_mesh(e)
         self.telemetry.append(record)
         ekey = (name, b_pad, t_pad)
         prev = self._ewma.get(ekey)

@@ -193,7 +193,11 @@ def train_loop(state_tree: dict, step_fn, batch_fn, cfg: TrainLoopConfig,
 
 def resume_or_init(cfg: TrainLoopConfig, init_state_tree: dict,
                    device="cuda") -> tuple[dict, int]:
-    """Restore the latest checkpoint onto ``device`` if there is one."""
+    """Restore the latest checkpoint onto ``device`` if there is one.  A
+    mesh-trained step keeps its state on the mesh's first device, which is
+    the ``device`` to pass.  Checkpoints do not record the mesh, so a run
+    checkpointed on one mesh resumes on a mesh of any size (elastic
+    restart)."""
     last = latest_step(cfg.checkpoint_dir)
     if last is None:
         return init_state_tree, 0

@@ -12,7 +12,8 @@ CPU runs and what the kernel is held to.
 The reference's ``bm/bk/bn`` are TPU VMEM tiling knobs and are not taken:
 the kernel tiles itself and guards ragged edges.  No path of the engine
 runs this kernel (as in the reference, only tests and measurements call
-it).
+it).  The launch runs with x's device made current and on its current
+stream.
 """
 
 from __future__ import annotations
@@ -77,11 +78,12 @@ def c2c_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     lib = _build.library("c2c_matmul")
-    err = lib.c2c_matmul_f32_i8(
-        x.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-        None if work is None else work.data_ptr(), m, k, n, k_chunk, splits,
-        _scale_value(scale),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with torch.cuda.device(x.device):
+        err = lib.c2c_matmul_f32_i8(
+            x.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), m, k, n, k_chunk,
+            splits, _scale_value(scale),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.launches["c2c_matmul"] += 1
     _build.check(lib, err, "c2c_matmul")
     return out

@@ -46,6 +46,7 @@
 namespace {
 
 constexpr int kMaxSteps = 32;  // most time steps a staged chunk holds
+constexpr int kMaxDevices = 64;  // devices whose shared-memory ceiling is kept
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -283,13 +284,20 @@ int launch(const float* cur, const float* v0, float* v_out, float* spikes,
         v_reset);
     return (int)cudaGetLastError();
   }
-  static bool sized = false;  // the shared-memory ceiling, set once
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lif_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        4 * kMaxSteps * kCols * 4);
+  // the shared-memory ceiling is an attribute of the kernel on the current
+  // device: set once per device (the launcher makes the data's device
+  // current)
+  static bool sized[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(lif_kernel<kCols>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               4 * kMaxSteps * kCols * 4);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized[dev] = true;
   }
   lif_kernel<kCols><<<blocks, kCols, 4 * steps * kCols * 4, stream>>>(
       cur_map, spk_map, v0, v_out, n_tiles, n_steps, n, steps, beta,

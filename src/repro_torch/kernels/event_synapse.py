@@ -27,6 +27,11 @@ not: the kernel cannot reproduce list order for an unsorted row.  That
 check reads one flag back to the host.  ``compacted=True`` skips both steps
 for a caller that holds :func:`events_from_spikes` output, as the engine's
 forward does, which then reads nothing from the device.
+
+Every launch runs with the events' device made current and on that
+device's current stream, so tensors on any card launch there, whichever
+card the caller has current; a weight tile or scale on another device
+than the events raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -149,8 +154,8 @@ def _scale_arg(scale, device: torch.device):
     return float(np.asarray(scale, dtype=np.float32).reshape(())), None
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def event_synapse_cuda(events: torch.Tensor, weights: torch.Tensor, *,
@@ -168,9 +173,11 @@ def event_synapse_cuda(events: torch.Tensor, weights: torch.Tensor, *,
         return out.zero_()
     ev = _kernel_events(events, weights.shape[0], compacted)
     lib = _build.library("event_synapse")
-    err = lib.event_synapse_f32(ev.data_ptr(), ev.stride(0),
-                                weights.data_ptr(), weights.stride(0),
-                                out.data_ptr(), r, n_events, n_dest, _stream())
+    with torch.cuda.device(events.device):
+        err = lib.event_synapse_f32(ev.data_ptr(), ev.stride(0),
+                                    weights.data_ptr(), weights.stride(0),
+                                    out.data_ptr(), r, n_events, n_dest,
+                                    _stream(events.device))
     _build.launches["event_synapse"] += 1
     _build.check(lib, err, "event_synapse")
     return out
@@ -194,11 +201,12 @@ def event_synapse_packed_cuda(events: torch.Tensor, packed_w: torch.Tensor,
     scale_f, scale_t = _scale_arg(scale, events.device)
     ev = _kernel_events(events, packed_w.shape[0], compacted)
     lib = _build.library("event_synapse")
-    err = lib.event_synapse_packed_i8(
-        ev.data_ptr(), ev.stride(0), packed_w.data_ptr(),
-        packed_w.stride(0), scale_f,
-        None if scale_t is None else scale_t.data_ptr(), bits,
-        out.data_ptr(), r, n_events, n_dest, _stream())
+    with torch.cuda.device(events.device):
+        err = lib.event_synapse_packed_i8(
+            ev.data_ptr(), ev.stride(0), packed_w.data_ptr(),
+            packed_w.stride(0), scale_f,
+            None if scale_t is None else scale_t.data_ptr(), bits,
+            out.data_ptr(), r, n_events, n_dest, _stream(events.device))
     _build.launches["event_synapse_packed"] += 1
     _build.packed_launches_by_bits[bits] += 1
     _build.check(lib, err, "event_synapse_packed")

@@ -6,7 +6,9 @@ the single clock edge of the Pallas ``lif_update``, and
 ``v`` carried in a register — what the engine runs per layer.  A block owns
 one sample and a tile of 32, 64 or 128 neurons (:func:`tile_cols`), so that
 the grid fills the card; the launch path keeps its library entry and the
-LIF constants as float32 once, and reads nothing from the device.
+LIF constants as float32 once, and reads nothing from the device.  Each
+launch runs with the currents' device made current and on its current
+stream; the kernel's shared-memory ceiling is set once per device.
 """
 
 from __future__ import annotations
@@ -77,11 +79,13 @@ def _launch(cur, v0, v_out, spikes, n_batch, n_steps, n, beta, threshold,
             v_reset) -> None:
     lib, fn = _entry()
     dev = cur.device.index
-    err = fn(cur.data_ptr(), None if v0 is None else v0.data_ptr(),
-             None if v_out is None else v_out.data_ptr(), spikes.data_ptr(),
-             n_batch, n_steps, n, tile_cols(n_batch, n, _n_sms(dev)),
-             *_constants(beta, threshold, v_reset),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with torch.cuda.device(dev):
+        err = fn(cur.data_ptr(), None if v0 is None else v0.data_ptr(),
+                 None if v_out is None else v_out.data_ptr(),
+                 spikes.data_ptr(), n_batch, n_steps, n,
+                 tile_cols(n_batch, n, _n_sms(dev)),
+                 *_constants(beta, threshold, v_reset),
+                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.launches["lif_update"] += 1
     _build.check(lib, err, "lif_update")
 

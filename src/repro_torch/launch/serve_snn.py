@@ -1,8 +1,10 @@
 """MENAGE serving launcher, in PyTorch: continuous batching of DVS event
-streams on one device — closed-list or always-on async.
+streams on one device or a data-parallel mesh — closed-list or always-on
+async.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_snn --model both \
-      --requests 48 [--device cuda|cpu] [--smoke] \
+      --requests 48 [--device cuda|cpu] [--data 2] [--spoof-devices 2] \
+      [--smoke] \
       [--arrivals poisson|bursty|diurnal|adversarial --rate 200 --slack 0.25] \
       [--noise-sigma 0.05] [--donate auto|on|off] [--scenario NAME|all]
 
@@ -14,6 +16,15 @@ on the card (``--device cuda``, the default) or through their plain
 PyTorch versions (``--device cpu``).  With no card, ``--device cuda``
 raises; nothing falls back to the CPU on its own.
 
+``--data N`` serves over an N-way mesh of cards
+(:func:`repro_torch.engine.sharded_run.snn_serve_mesh`): every bucket's
+batch is split over the cards, the model replicated on each, the buckets
+rounded to multiples of N.  ``--spoof-devices N`` makes the mesh N logical
+shards over the one ``--device`` instead (the CPU, or one card), the
+counterpart of the reference's emulated N-device host; ``--data`` then
+takes the first of them.  Asking for more cards than exist raises.
+Without either flag the model serves on ``--device`` alone.
+
 ``--arrivals poisson|bursty|diurnal|adversarial`` switches from the
 closed-list ``run_bucketed`` pass to the always-on loop
 (:mod:`repro_torch.engine.stream_server`): a time-stamped arrival process
@@ -24,7 +35,8 @@ applying backpressure.  ``--noise-sigma`` serves through a deterministic
 noisy device instance (accuracy-under-noise shadow probes), ``--donate``
 refills one input buffer per bucket, and ``--scenario NAME|all`` replays
 named chaos scripts from :data:`repro_torch.engine.chaos.SCENARIOS`
-instead (those that script device loss need a mesh and are skipped).
+instead (those that script device loss need a mesh of 2 or more devices
+and are skipped without one).
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ from repro_torch.core.lif import LIFParams
 from repro_torch.core.noise import AnalogNoise
 from repro_torch.engine import (ARRIVAL_MODES, SCENARIOS, BucketPolicy,
                                 StreamServer, VirtualClock, run_bucketed,
-                                run_scenario, serve_trace,
+                                run_scenario, serve_trace, snn_serve_mesh,
                                 synth_arrival_trace, trace_count)
 
 
@@ -85,7 +97,7 @@ def synth_requests(n: int, n_in: int, *, t_lo: int = 4, t_hi: int = 30,
             for t in lengths]
 
 
-def serve_async(model, trace, *, policy: BucketPolicy,
+def serve_async(model, trace, *, policy: BucketPolicy, mesh=None,
                 queue_capacity: int = 256, backpressure: str = "reject",
                 service_model=None, max_events: int | None = None,
                 with_stats: bool = False, donate: bool | None = None,
@@ -96,8 +108,9 @@ def serve_async(model, trace, *, policy: BucketPolicy,
     simulated-time throughput, wall seconds (host clock), and the count of
     new engine shapes.  ``tracer`` (a
     :class:`~repro_torch.engine.tracing.FlightRecorder`) enables
-    per-request span tracing."""
-    server = StreamServer(model, policy=policy, clock=VirtualClock(),
+    per-request span tracing; ``mesh`` serves sharded over it."""
+    server = StreamServer(model, policy=policy, mesh=mesh,
+                          clock=VirtualClock(),
                           queue_capacity=queue_capacity,
                           backpressure=backpressure,
                           service_model=service_model,
@@ -125,15 +138,15 @@ def serve_async(model, trace, *, policy: BucketPolicy,
     return results, rids, snap
 
 
-def serve_stream(model, streams, *, policy: BucketPolicy,
+def serve_stream(model, streams, *, policy: BucketPolicy, mesh=None,
                  max_events: int | None = None, with_stats: bool = False):
-    """One closed-list serving pass; returns (results, metrics): events/s,
-    spikes/s, p50/p99 per-bucket step latency (host clock) and the count of
-    new engine shapes."""
+    """One closed-list serving pass (sharded over ``mesh`` when given);
+    returns (results, metrics): events/s, spikes/s, p50/p99 per-bucket step
+    latency (host clock) and the count of new engine shapes."""
     telemetry: list[dict] = []
     n0 = trace_count()
     t0 = time.perf_counter()
-    results = run_bucketed(model, streams, policy=policy,
+    results = run_bucketed(model, streams, policy=policy, mesh=mesh,
                            max_events=max_events, with_stats=with_stats,
                            telemetry=telemetry)
     wall = time.perf_counter() - t0
@@ -161,6 +174,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the hand-written kernels on the card "
                          "(raises with no card); cpu: their plain versions")
+    ap.add_argument("--data", type=int, default=None,
+                    help="serve over a mesh of this many devices (the "
+                         "first N cards, or of the --spoof-devices shards)")
+    ap.add_argument("--spoof-devices", type=int, default=None,
+                    help="make the mesh N logical shards over the one "
+                         "--device (the CPU or one card)")
     ap.add_argument("--max-events", type=int, default=None)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--arrivals", default="closed",
@@ -188,6 +207,13 @@ def main(argv=None):
                          "(auto: on for the card, off on the CPU)")
     args = ap.parse_args(argv)
     donate = None if args.donate == "auto" else args.donate == "on"
+    mesh = None
+    if args.data is not None or args.spoof_devices is not None:
+        mesh = snn_serve_mesh(args.data, device=args.device,
+                              spoof=args.spoof_devices)
+    n_shards = mesh.size if mesh is not None else 1
+    where = (f"{n_shards}-way mesh" + ("" if mesh is None or mesh.real
+                                       else " (spoofed)"))
 
     kinds = ["mlp", "conv"] if args.model == "both" else [args.model]
     n_req = min(args.requests, 16) if args.smoke else args.requests
@@ -200,14 +226,16 @@ def main(argv=None):
                 device=args.device)
             for name in names:
                 sc = SCENARIOS[name]
-                if sc.needs_mesh:
+                if sc.needs_mesh and n_shards < 2:
                     print(f"chaos/{kind}/{name}: SKIP (scripts device loss; "
-                          f"needs a >= 2-device mesh)")
+                          f"needs a >= 2-device mesh: --data N or "
+                          f"--spoof-devices N)")
                     continue
-                _, _, m = run_scenario(packed, sc)
+                _, _, m = run_scenario(packed, sc, mesh=mesh)
                 print(f"chaos/{kind}/{name}: {m['completed']}/{m['requests']}"
                       f" served | miss rate {m['deadline_miss_rate']:.3f} | "
-                      f"shed {m['shed']} rejected {m['rejected']} | "
+                      f"shed {m['shed']} rejected {m['rejected']} | mesh "
+                      f"{m['mesh_size_start']}->{m['mesh_size_end']} | "
                       f"slo switches {m['slo_switches']} | noise agreement "
                       f"{m['noise_agreement']:.3f} "
                       f"({m['noise_probes']} probes)")
@@ -221,7 +249,8 @@ def main(argv=None):
                                         mode=args.arrivals, rate=args.rate,
                                         slack=args.slack, t_hi=t_hi, seed=1)
             policy = BucketPolicy.covering([s.shape[0] for _, s, _ in trace],
-                                           max_batch=4)
+                                           n_shards=n_shards,
+                                           max_batch=4 * n_shards)
             # instantaneous-service simulation: batch formation then depends
             # only on the (fixed) trace, so the warm replay sees exactly the
             # buckets the hot replay hits and the new-shape gate below is
@@ -229,7 +258,8 @@ def main(argv=None):
             svc = lambda b, t: 0.0  # noqa: E731
             noise = (AnalogNoise(weight_sigma=args.noise_sigma)
                      if args.noise_sigma > 0 else None)
-            kw = dict(policy=policy, queue_capacity=args.queue_capacity,
+            kw = dict(policy=policy, mesh=mesh,
+                      queue_capacity=args.queue_capacity,
                       service_model=svc, max_events=args.max_events,
                       donate=donate, noise=noise)
             serve_async(packed, trace, **kw)
@@ -240,7 +270,8 @@ def main(argv=None):
                      for r in rids[:8] if r is not None and r in results]
             print(f"serve-async/{kind} [{args.arrivals}]: "
                   f"{m['completed']}/{m['requests']} reqs on "
-                  f"{packed.device} | offered {m['offered_rps']:.0f} "
+                  f"{packed.device}, {where} | offered "
+                  f"{m['offered_rps']:.0f} "
                   f"rps, served {m['throughput_rps']:.0f} rps | latency "
                   f"p50 {m['p50_latency_s']*1e3:.1f} ms p99 "
                   f"{m['p99_latency_s']*1e3:.1f} ms | miss rate "
@@ -253,17 +284,18 @@ def main(argv=None):
             continue
         streams = synth_requests(n_req, packed.n_in, t_hi=t_hi, seed=1)
         policy = BucketPolicy.covering([s.shape[0] for s in streams],
-                                       max_batch=4)
+                                       n_shards=n_shards,
+                                       max_batch=4 * n_shards)
         # see every bucket this stream touches, then measure a hot pass
-        serve_stream(packed, streams, policy=policy,
+        serve_stream(packed, streams, policy=policy, mesh=mesh,
                      max_events=args.max_events)
-        results, m = serve_stream(packed, streams, policy=policy,
+        results, m = serve_stream(packed, streams, policy=policy, mesh=mesh,
                                   max_events=args.max_events)
         if m["new_traces"]:
             raise RuntimeError("the hot serving pass met new engine shapes")
         preds = [int(r.out_spikes.sum(axis=0).argmax()) for r in results[:8]]
-        print(f"serve/{kind}: {m['requests']} reqs on {packed.device} "
-              f"in {m['wall_s']*1e3:.0f} ms | "
+        print(f"serve/{kind}: {m['requests']} reqs on {packed.device}, "
+              f"{where} in {m['wall_s']*1e3:.0f} ms | "
               f"{m['events_per_s']/1e3:.1f}k events/s, "
               f"{m['spikes_per_s']/1e3:.1f}k spikes/s | "
               f"step p50 {m['p50_step_ms']:.1f} ms p99 "

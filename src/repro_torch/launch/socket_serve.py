@@ -7,18 +7,20 @@ deadlines, backpressure and hot-swaps over a live connection, with every
 engine call on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.socket_serve --model mlp \
-      --port 7473 [--device cuda|cpu] [--noise-sigma 0.05] \
-      [--slo-target 0.1] [--smoke]
+      --port 7473 [--device cuda|cpu] [--data 2] [--spoof-devices 2] \
+      [--noise-sigma 0.05] [--slo-target 0.1] [--smoke]
   PYTHONPATH=src python -m repro_torch.launch.socket_serve \
       --models mlp,conv --port 7473 [--device cpu] [--smoke]
       # multi-tenant fabric, one tenant per name
 
 ``--device cuda`` (the default) serves through the hand-written kernels
 and raises when there is no card; ``--device cpu`` serves through their
-plain PyTorch versions.  Serving is single-device: the reference's mesh
-flags (``--data``, ``--spoof-devices``) have no counterpart here.  The
-frames are byte-identical to the JAX package's, so clients and servers of
-either package talk to each other.
+plain PyTorch versions.  ``--data N`` serves over an N-way mesh of cards
+and ``--spoof-devices N`` over N logical shards of the one ``--device``
+(:func:`repro_torch.engine.sharded_run.snn_serve_mesh`), with the bucket
+batches rounded to the mesh's size; a device loss then shrinks the mesh
+and serving goes on.  The frames are byte-identical to the JAX package's,
+so clients and servers of either package talk to each other.
 
 Design: a single-threaded ``selectors`` event loop.  Engine dispatches run
 inline (the loop drains sockets between engine calls — exactly the
@@ -491,6 +493,7 @@ def _check(cond: bool, what: str) -> None:
 
 def main(argv=None):
     from repro_torch.core.noise import AnalogNoise
+    from repro_torch.engine.sharded_run import snn_serve_mesh
     from repro_torch.engine.stream_server import METRIC_KEYS
     from repro_torch.launch.serve_snn import build_demo_model, synth_requests
 
@@ -506,6 +509,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the hand-written kernels on the card "
                          "(raises with no card); cpu: their plain versions")
+    ap.add_argument("--data", type=int, default=None,
+                    help="serve over a mesh of this many devices (the "
+                         "first N cards, or of the --spoof-devices shards)")
+    ap.add_argument("--spoof-devices", type=int, default=None,
+                    help="make the mesh N logical shards over the one "
+                         "--device")
     ap.add_argument("--queue-capacity", type=int, default=256)
     ap.add_argument("--backpressure", default="reject",
                     choices=["reject", "shed_oldest"])
@@ -527,6 +536,11 @@ def main(argv=None):
              if args.noise_sigma > 0 else None)
     slo = (SLOPolicy(target_miss_rate=args.slo_target)
            if args.slo_target is not None else None)
+    mesh = None
+    if args.data is not None or args.spoof_devices is not None:
+        mesh = snn_serve_mesh(args.data, device=args.device,
+                              spoof=args.spoof_devices)
+    n_shards = mesh.size if mesh is not None else 1
 
     def model_factory(spec: dict):
         """ADMIN swap body -> new packed weights: {"op": "swap", "model":
@@ -546,9 +560,9 @@ def main(argv=None):
             registry.register(
                 kind, build_demo_model(kind, smoke=args.smoke).pack(
                     device=args.device),
-                policy=BucketPolicy(), noise=noise)
+                policy=BucketPolicy.for_mesh(n_shards), noise=noise)
         srv = SpikeSocketServer(
-            registry, host=args.host, port=args.port,
+            registry, host=args.host, port=args.port, mesh=mesh,
             queue_capacity=args.queue_capacity,
             backpressure=args.backpressure,
             default_slack=args.default_slack, slo=slo,
@@ -558,8 +572,8 @@ def main(argv=None):
         packed = build_demo_model(args.model, smoke=args.smoke).pack(
             device=args.device)
         srv = SpikeSocketServer(
-            packed, policy=BucketPolicy(),
-            host=args.host, port=args.port,
+            packed, policy=BucketPolicy.for_mesh(n_shards),
+            host=args.host, port=args.port, mesh=mesh,
             queue_capacity=args.queue_capacity,
             backpressure=args.backpressure,
             default_slack=args.default_slack, noise=noise, slo=slo,
@@ -567,8 +581,9 @@ def main(argv=None):
         label = args.model
     host, port = srv.address
     names = srv.server.registry.names()
+    where = "" if mesh is None else f"{mesh.size}-way mesh, "
     print(f"socket-serve/{label}: listening on {host}:{port} "
-          f"(on {srv.server.packed.device}, {len(names)} tenant(s): "
+          f"(on {srv.server.packed.device}, {where}{len(names)} tenant(s): "
           f"{', '.join(names)})")
 
     if args.smoke:

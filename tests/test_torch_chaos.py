@@ -2,8 +2,12 @@
 the non-socket tests of tests/test_chaos.py.  Arrival traces are numpy
 only and must equal the reference's exactly; every scenario the reference
 can run on its packed route replays on both fabrics with equal metrics and
-bit-equal outputs; scenarios that script device loss need a mesh, which
-single-device serving refuses, and a device loss at a dispatch is fatal."""
+bit-equal outputs; scenarios that script device loss need a mesh of at
+least 2 devices and are refused without one, recover onto the shrunken
+mesh with one (a spoofed 2-way mesh of the CPU here; the reference's
+sharded path does not run on the installed JAX, so the recovered runs are
+held to the port's single-device engine), and a device loss with no mesh
+is fatal."""
 
 import numpy as np
 import pytest
@@ -12,10 +16,12 @@ import torch
 from _torch_helpers import demo_models
 from repro.engine import chaos as ref_chaos
 
+from repro_torch.core.noise import AnalogNoise, as_noise_key, perturb_packed
 from repro_torch.engine import (ARRIVAL_MODES, SCENARIOS, BucketPolicy,
                                 ChaosScenario, DeviceLossError, StreamServer,
                                 VirtualClock, make_chaos_hook, run_batched,
-                                run_scenario, synth_arrival_trace)
+                                run_scenario, shrink_mesh, snn_serve_mesh,
+                                synth_arrival_trace)
 
 torch.set_num_threads(1)
 
@@ -172,3 +178,93 @@ def test_device_loss_is_fatal_on_one_device(models):
     with pytest.raises(DeviceLossError):
         server.submit(stream)                   # dispatch 1 loses a device
     assert server.metrics.snapshot()["device_losses"] == 0
+
+
+# ------------------------------------------------ device loss on a mesh
+
+def test_device_loss_scenarios_recover_on_shrunken_mesh(models):
+    """device_loss and blackout on a spoofed 2-way mesh: the scripted loss
+    fires, the server recovers onto 1 device, every admitted request is
+    still served, both replays are deterministic, and every completed
+    request equals the single-device engine's run of it alone (through the
+    scenario's noisy device instance where it serves one)."""
+    packed = models[1]
+    mesh = snn_serve_mesh(device="cpu", spoof=2)
+    for name in ("device_loss", "blackout"):
+        sc = SCENARIOS[name]
+        r1, rids, m1 = run_scenario(packed, sc, mesh=mesh)
+        r2, _, m2 = run_scenario(packed, sc, mesh=mesh)
+        assert m1 == m2, f"{name}: not deterministic"
+        assert r1.keys() == r2.keys() and all(
+            np.array_equal(r1[k].out_spikes, r2[k].out_spikes) for k in r1)
+        assert m1["device_losses"] == len(sc.lose_devices), name
+        assert (m1["mesh_size_start"], m1["mesh_size_end"]) == (2, 1), name
+        assert m1["served_all_admitted"], f"{name}: lost admitted requests"
+        served = (perturb_packed(as_noise_key(sc.seed), packed,
+                                 AnalogNoise(weight_sigma=sc.noise_sigma))
+                  if sc.noise_sigma > 0 else packed)
+        trace = synth_arrival_trace(
+            sc.n_requests, packed.n_in, mode=sc.arrivals, rate=sc.rate,
+            slack=sc.slack, t_lo=sc.t_lo, t_hi=sc.t_hi, seed=sc.seed)
+        done = [(rid, s) for rid, (_, s, _) in zip(rids, trace)
+                if rid is not None and rid in r1]
+        assert len(done) == m1["completed"] > 0
+        for rid, s in done:
+            alone = run_batched(served, s[None], with_stats=False)
+            np.testing.assert_array_equal(r1[rid].out_spikes,
+                                          alone.out_spikes[0],
+                                          err_msg=f"{name} rid {rid}")
+
+
+def test_losing_every_device_is_fatal():
+    """Recovery needs survivors: shrinking past the last device raises
+    instead of serving on nothing, and a server whose 2-way mesh loses
+    both devices at one dispatch re-raises."""
+    mesh = snn_serve_mesh(device="cpu", spoof=2)
+    small = shrink_mesh(mesh, 1)
+    assert small.size == 1 and small.axis_names == mesh.axis_names
+    with pytest.raises(DeviceLossError) as e:
+        shrink_mesh(small, 1)
+    assert e.value.n_lost == 1
+
+
+def test_losing_every_device_mid_serving_is_fatal(models):
+    server = StreamServer(models[1], clock=VirtualClock(),
+                          mesh=snn_serve_mesh(device="cpu", spoof=2),
+                          policy=BucketPolicy(batch_sizes=(2,),
+                                              time_steps=(8,)),
+                          chaos_hook=make_chaos_hook([(0, 2)]))
+    stream = np.zeros((4, 64), np.float32)
+    server.submit(stream)
+    with pytest.raises(DeviceLossError, match="all 2 devices lost"):
+        server.submit(stream)                   # dispatch 0 loses both
+    assert server.metrics.snapshot()["device_losses"] == 0
+
+
+def test_serve_snn_runs_device_loss_on_a_spoofed_mesh():
+    """`python -m repro_torch.launch.serve_snn --scenario all --smoke
+    --device cpu --spoof-devices 2` runs every scenario, device loss
+    included, and names the mesh; without a mesh those two are skipped,
+    and `--data 2` with one device raises with the reason."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve_snn import main
+
+    def run(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main(["--smoke", "--device", "cpu", *argv])
+        return out.getvalue().splitlines()
+
+    lines = run("--scenario", "all", "--spoof-devices", "2")
+    assert len(lines) == len(SCENARIOS)
+    for name in ("device_loss", "blackout"):
+        line = next(x for x in lines if x.startswith(f"chaos/mlp/{name}:"))
+        assert "mesh 2->1" in line and "SKIP" not in line
+    lines = run("--scenario", "device_loss")
+    assert "SKIP" in lines[0]
+    lines = run("--spoof-devices", "2")
+    assert lines[0].startswith("serve/mlp:") and "2-way mesh" in lines[0]
+    with pytest.raises(ValueError, match="2-way mesh, but 1 cpu"):
+        run("--data", "2")

@@ -707,3 +707,201 @@ def test_cuda_trained_conv_served_on_dense_kernel(card):
         for a, b in zip(r.stats, oracle.per_layer_stats):
             np.testing.assert_array_equal(a.cycles, b.cycles)
             np.testing.assert_array_equal(a.engine_ops, b.engine_ops)
+
+
+# ---------------------------------------------------------------- the mesh
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices: a launch on a second card, with "
+                    "another one current, shows only there")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _mesh_model(card, quant_bits, seed=5):
+    rng = np.random.default_rng(seed)
+    sizes = (300, 200, 64, 10)
+    spec = AcceleratorSpec("mesh", n_cores=len(sizes) - 1, n_engines=8,
+                           n_caps=16, weight_mem_bytes=1 << 18)
+    mapped = map_model(_pruned_mlp(rng, sizes), spec, quant_bits=quant_bits)
+    spikes = (rng.random((8, 12, sizes[0])) < 0.2).astype(np.float32)
+    return mapped, spikes
+
+
+def _same(a, b):
+    np.testing.assert_array_equal(a.out_spikes, b.out_spikes)
+    for x, y in zip(a.per_layer_stats, b.per_layer_stats):
+        for f in ("cycles", "rows_touched", "engine_ops", "events",
+                  "sn_bytes_touched", "mem_e_peak"):
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+    for x, y in zip(a.per_layer_util, b.per_layer_util):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(a.overflow, b.overflow):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("quant_bits", [8, 4])
+def test_cuda_spoofed_mesh_bit_exact_on_both_routes(card, quant_bits):
+    """A spoofed 2-way mesh on the card (two shards of one device, each
+    with its own input buffer): run_sharded equals run_batched on the card
+    and the CPU path on the dense and the packed route, each shard
+    launching every layer's kernels."""
+    from repro_torch.engine import run_sharded, snn_serve_mesh
+    mapped, spikes = _mesh_model(card, quant_bits)
+    want = br.run_batched(mapped.pack(device="cpu"), spikes)
+    mesh = snn_serve_mesh(device=card, spoof=2)
+    for packed_ops in (False, True):
+        model = mapped.pack(packed_ops=packed_ops, device=card)
+        _build.reset_launches()
+        got = run_sharded(model, spikes, mesh=mesh)
+        synapse = "event_synapse_packed" if packed_ops else "event_synapse"
+        assert _build.launches[synapse] == 2 * len(mapped.layers)
+        assert _build.launches["lif_update"] == 2 * len(mapped.layers)
+        _same(got, want)
+        _same(br.run_batched(model, spikes), want)
+        assert sorted(k for k in model.input_buffers if len(k) == 3) == \
+            [(0, 4, 12), (1, 4, 12)]
+
+
+def test_cuda_sharded_forward_is_sync_free(card):
+    """Every shard's forward, dense and packed, enqueued on its device
+    under ``set_sync_debug_mode("error")``: nothing waits for the device
+    before the results are copied back (on every card there is, or a
+    spoofed 2-way mesh on one)."""
+    from repro_torch.engine import snn_serve_mesh
+    from repro_torch.engine.sharded_run import forward_shards
+    n = torch.cuda.device_count()
+    mesh = (snn_serve_mesh(2) if n >= 2
+            else snn_serve_mesh(device=card, spoof=2))
+    rng = np.random.default_rng(7)
+    x = (rng.random((8, 16, 2312)) < 0.1).astype(np.float32)
+    for packed_ops in (False, True):
+        model = _random_model((2312, 200, 100, 40, 10), 8, card, packed_ops,
+                              seed=8)
+        shards = [_t(x[4 * s:4 * s + 4]).to(d)
+                  for s, d in enumerate(mesh.devices)]
+        for d in mesh.devices:
+            model.replica(d)
+            torch.cuda.synchronize(d)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = forward_shards(model, shards, mesh.devices, None)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        whole = br._forward_impl(model, _t(x).to(card), None)
+        got = torch.cat([o[-1].to(card) for o in outs])
+        assert torch.equal(got, whole[-1])
+
+
+@pytest.mark.parametrize("family", ["mlp", "conv"])
+def test_cuda_mesh_training_bit_exact_with_one_device(card, family):
+    """Training over a 2-way mesh (two cards where there are, else two
+    shards of one) equals single-device training with ``grad_shards=2``
+    bit for bit, losses and parameters, and its step reads nothing from
+    the device."""
+    from repro_torch.data.events import event_batch_at
+    from repro_torch.engine import (SNNTrainConfig, make_snn_train_step,
+                                    snn_train_mesh, train_snn_model)
+    from repro_torch.engine.train_loop import init_train_state
+    model, cfg, spikes, labels = _train_setup(family)
+    mesh = (snn_train_mesh(2) if torch.cuda.device_count() >= 2
+            else snn_train_mesh(device=card, spoof=2))
+    data = lambda s: event_batch_at(spikes, labels, 16, s)  # noqa: E731
+    runs = {}
+    for tag, kw in (("mesh", dict(mesh=mesh)), ("one", dict(grad_shards=2))):
+        runs[tag] = train_snn_model(
+            model, cfg, data, SNNTrainConfig(steps=4, lr=2e-3,
+                                             log_every=1000, **kw),
+            key=torch.Generator().manual_seed(1), log_fn=lambda s: None)
+    (pm, hm), (p1, h1) = runs["mesh"], runs["one"]
+    assert hm["loss"] == h1["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(pm, p1))
+    opt_cfg = SNNTrainConfig().adamw()
+    step = make_snn_train_step(model, cfg, opt_cfg, mesh=mesh)
+    state = init_train_state(None, [p.to(mesh.devices[0]) for p in pm],
+                             opt_cfg).as_tree()
+    batch = _train_batch(spikes, labels, mesh.devices[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_cuda_launchers_on_the_second_card(two_cards):
+    """Every launcher given tensors on cuda:1 while cuda:0 is current
+    launches there, on cuda:1's stream, and equals its plain version."""
+    first, second = two_cards
+    rng = np.random.default_rng(21)
+    rows = np.full((40, 64), -1, np.int32)
+    for r in range(40):
+        k = rng.integers(0, 64)
+        rows[r, :k] = np.sort(rng.choice(512, k, replace=False))
+    events = _t(rows).to(second)
+    w = _t(rng.normal(0, 1, (512, 300)).astype(np.float32)).to(second)
+    codes = _codes(rng, 512, 300, 8)
+    packed = _t(pack_signmag(codes, 8)).to(second)
+    cur = _t(rng.normal(0.4, 0.7, (8, 20, 300)).astype(np.float32)).to(second)
+    # 0/1 inputs and integer codes: every partial sum exact, so the
+    # C2C kernel too equals its plain version bit for bit
+    x = _t((rng.random((64, 256)) < 0.3).astype(np.float32)).to(second)
+    wq = _t(codes[:256, :128].copy()).to(second)
+    p = LIFParams(beta=0.85, threshold=0.7, v_reset=0.1)
+    with torch.cuda.device(first):
+        assert torch.cuda.current_device() == 0
+        got = [es.event_synapse_cuda(events, w),
+               es.event_synapse_packed_cuda(events, packed, 0.01, 8),
+               lu.lif_scan_cuda(cur, p),
+               *lu.lif_update_cuda(cur[:, 0].contiguous(),
+                                   cur[:, 1].contiguous(), beta=0.85,
+                                   threshold=0.7, v_reset=0.1),
+               c2c.c2c_matmul_cuda(x, wq, 0.02)]
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(second)
+    want = [es.event_synapse_plain(events, w),
+            es.event_synapse_packed_plain(events, packed, 0.01, 8),
+            lu.lif_scan_plain(cur, p),
+            *lu.lif_update_plain(cur[:, 0], cur[:, 1], 0.85, 0.7, 0.1),
+            c2c.c2c_matmul_plain(x, wq, 0.02)]
+    for g, wt in zip(got, want):
+        assert g.device == second and torch.equal(g, wt)
+    with pytest.raises(ValueError, match="weights on"):
+        es.event_synapse_cuda(events, w.to(first))
+    with pytest.raises(ValueError, match="one device"):
+        lu.lif_update_cuda(cur[:, 0].contiguous(),
+                           cur[:, 1].contiguous().to(first), beta=0.85,
+                           threshold=0.7, v_reset=0.1)
+
+
+def test_cuda_lif_shared_memory_ceiling_on_each_card(two_cards):
+    """lif_scan with 64 KiB of dynamic shared memory (T >= 32, 128-neuron
+    tiles), above the 48 KiB a launch may take unasked: first on cuda:0,
+    then on cuda:1, whose kernel attribute must be raised on its own."""
+    p = LIFParams(beta=0.85, threshold=0.7, v_reset=0.1)
+    rng = np.random.default_rng(22)
+    host = _t(rng.normal(0.35, 0.6, (8, 64, 2048)).astype(np.float32))
+    assert lu.tile_cols(8, 2048, 132) == 128
+    for dev in two_cards:
+        cur = host.to(dev)
+        with torch.cuda.device(two_cards[0]):
+            got = lu.lif_scan_cuda(cur, p)
+        assert torch.equal(got, lu.lif_scan_plain(cur, p))
+
+
+@pytest.mark.parametrize("quant_bits", [8, 4])
+def test_cuda_real_mesh_equals_one_card(two_cards, quant_bits):
+    """A real 2-way run_sharded over cuda:0 and cuda:1 (the model
+    replicated once onto cuda:1) equals run_batched on cuda:0."""
+    from repro_torch.engine import run_sharded, snn_serve_mesh
+    mapped, spikes = _mesh_model(two_cards[0], quant_bits, seed=9)
+    mesh = snn_serve_mesh(2)
+    assert mesh.real and mesh.devices == two_cards
+    for packed_ops in (False, True):
+        model = mapped.pack(packed_ops=packed_ops, device=two_cards[0])
+        _same(run_sharded(model, spikes, mesh=mesh),
+              br.run_batched(model, spikes))
+        rep = model.replicas[two_cards[1]]
+        run_sharded(model, spikes, mesh=mesh)
+        assert model.replicas[two_cards[1]] is rep

@@ -33,6 +33,31 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.checkpoint.manager",
                  "repro_torch.engine.train_loop",
                  "repro_torch.engine.snn_train",
-                 "repro_torch.launch.socket_serve"):
+                 "repro_torch.launch.socket_serve",
+                 "repro_torch.engine.sharded_run",
+                 "repro_torch.launch.serve_snn"):
         assert name in got["modules"], name
     assert got["leaked"] == [], got["leaked"]
+
+
+_MESH_NAMES = r"""
+import json, sys
+import repro_torch.engine as e
+names = ["ServeMesh", "snn_serve_mesh", "shrink_mesh", "batch_spec",
+         "n_batch_shards", "run_sharded", "DeviceLossError",
+         "snn_train_mesh"]
+print(json.dumps({"missing": [n for n in names if not hasattr(e, n)],
+                  "jax": "jax" in sys.modules}))
+"""
+
+
+def test_mesh_names_exported_without_jax():
+    """The mesh surface is exported from ``repro_torch.engine`` and brings
+    in no JAX."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    p = subprocess.run([sys.executable, "-c", _MESH_NAMES],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == \
+        {"missing": [], "jax": False}

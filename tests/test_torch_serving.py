@@ -99,6 +99,55 @@ def test_plan_and_policy_match_reference():
         ref_serving.BucketPolicy(time_steps=(8,)).with_time_bucket(20).time_steps
 
 
+def test_policy_for_mesh_divisibility():
+    """Every batch bucket a multiple of the mesh's size, the reference's
+    grid exactly."""
+    for n in (1, 2, 3, 8):
+        p = serving.BucketPolicy.for_mesh(n, batch_sizes=(1, 4, 16))
+        assert all(b % n == 0 for b in p.batch_sizes)
+        want = ref_serving.BucketPolicy.for_mesh(n, batch_sizes=(1, 4, 16))
+        assert (p.batch_sizes, p.time_steps) == \
+            (want.batch_sizes, want.time_steps)
+
+
+def test_policy_covering_rounds_to_the_mesh():
+    lengths = [3, 17, 9]
+    for n, max_batch in ((2, 8), (3, 16), (4, 4)):
+        p = serving.BucketPolicy.covering(lengths, n_shards=n,
+                                          max_batch=max_batch)
+        assert p.time_steps[-1] >= 17 and p.max_batch >= max_batch
+        assert all(b % n == 0 for b in p.batch_sizes)
+        want = ref_serving.BucketPolicy.covering(lengths, n_shards=n,
+                                                 max_batch=max_batch)
+        assert (p.batch_sizes, p.time_steps) == \
+            (want.batch_sizes, want.time_steps)
+
+
+def test_run_bucketed_on_a_mesh_matches_one_device_and_oracle():
+    """``mesh=`` routes every engine call through run_sharded; the default
+    policy is rounded to the mesh, and every request equals the
+    single-device run and the oracle's run of it alone."""
+    from repro_torch.engine import snn_serve_mesh
+    rng = np.random.default_rng(11)
+    ref, port = map_both(pruned_mlp(rng, (16, 20, 8), density=0.6), 4, 8)
+    streams = [spikes_for(rng, 1, t, 16, 0.4)[0]
+               for t in (3, 9, 5, 16, 1, 7, 12)]
+    packed = port.pack(device="cpu")
+    telemetry = []
+    mesh = snn_serve_mesh(device="cpu", spoof=2)
+    res = serving.run_bucketed(packed, streams, mesh=mesh,
+                               telemetry=telemetry)
+    assert all(t["b_pad"] % 2 == 0 for t in telemetry)
+    one = serving.run_bucketed(packed, streams)
+    for r, o, s in zip(res, one, streams):
+        oracle = ref_run(ref, s)
+        for got in (r, o):
+            np.testing.assert_array_equal(got.out_spikes, oracle.out_spikes)
+            for a, b in zip(got.stats, oracle.per_layer_stats):
+                assert_stats_equal(a, b)
+        assert vars(r.energy()) == vars(oracle.energy)
+
+
 def test_overlong_requests():
     rng = np.random.default_rng(5)
     ref, port = map_both(pruned_mlp(rng, (8, 6)), 2, 4)

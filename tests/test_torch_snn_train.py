@@ -2,12 +2,14 @@
 twins of tests/test_snn_train.py, and the port's trajectory against the
 reference's from the same start on the same batches.
 
-Left out: the reference's mesh tests (``test_mesh_matches_pinned_shards_
-inprocess``, ``test_sharded_1x8_bit_exact_8dev``,
-``test_elastic_conv_8dev_to_4dev``) — the port trains on one device; its
-data-parallel half is later work on ``torch.distributed``.  What those
-tests pin, a ``grad_shards`` fold whose arithmetic does not depend on the
-devices, is held here against a hand-written fold.
+The mesh twins (``test_mesh_matches_pinned_shards_inprocess``,
+``test_sharded_1x8_bit_exact_8dev``, ``test_elastic_conv_8dev_to_4dev``)
+train on meshes spoofed in this process (``snn_train_mesh(spoof=N)``: N
+shards of the CPU) and hold them bit for bit to single-device training at
+the same ``grad_shards``; the reference's own mesh training does not run
+on the installed JAX (its ``shard_map`` call passes ``check_rep``), so the
+8-way run is also held to the reference's single-device ``grad_shards=8``
+training at the trajectory twin's tolerances.
 """
 
 import jax
@@ -27,8 +29,9 @@ from repro.snn.mlp import SNNConfig as RefSNNCfg
 from repro_torch.convert import params_from_reference
 from repro_torch.data.events import event_batch_at
 from repro_torch.engine.snn_train import (CONV_MODEL, MLP_MODEL, SNNModel,
-                                          SNNTrainConfig, make_snn_train_step,
-                                          model_for, train_snn_model)
+                                          SNNTrainConfig, _batch_split,
+                                          make_snn_train_step, model_for,
+                                          snn_train_mesh, train_snn_model)
 from repro_torch.engine.train_loop import init_train_state
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.snn.conv import ConvSNNConfig
@@ -231,3 +234,117 @@ def test_trajectory_matches_reference(dataset, family):
     for a, b in zip(rparams, pparams):
         np.testing.assert_allclose(b.numpy(), np.asarray(a),
                                    atol=lr * steps)
+
+
+# --------------------------------------------------------- sharded bit-exact
+
+def _models(family):
+    return (MLP_MODEL, MLP_CFG) if family == "mlp" else (CONV_MODEL, CONV_CFG)
+
+
+def _train(model, cfg, data, steps, **kw):
+    tc = SNNTrainConfig(steps=steps, lr=2e-3, log_every=1000, **kw)
+    return train_snn_model(model, cfg, data, tc, key=_gen(),
+                           device=None if "mesh" in kw else "cpu",
+                           log_fn=_quiet)
+
+
+def test_mesh_matches_pinned_shards_inprocess(dataset):
+    """Training over the default mesh (every device: the one CPU) and over
+    a spoofed 2-way mesh == single-device training with ``grad_shards``
+    pinned to the mesh's split — same losses, same params, bit for bit."""
+    spikes, labels = dataset
+    data = _batch_of(spikes, labels)
+    for mesh in (snn_train_mesh(device="cpu"),
+                 snn_train_mesh(device="cpu", spoof=2)):
+        k = _batch_split(mesh, (DATA.num_steps, 16, DATA.n_in))
+        assert k == mesh.size
+        p_mesh, h_mesh = _train(MLP_MODEL, MLP_CFG, data, 10, mesh=mesh)
+        p_single, h_single = _train(MLP_MODEL, MLP_CFG, data, 10,
+                                    grad_shards=k)
+        assert h_mesh["loss"] == h_single["loss"]
+        for a, b in zip(p_mesh, p_single):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["mlp", "conv"])
+def test_sharded_1x8_bit_exact_8dev(dataset, family):
+    """On a spoofed 8-way mesh, data-parallel training is bit-exact with
+    single-device ``grad_shards=8`` training for the same data order; and
+    it stays within the trajectory twin's tolerances of the reference's
+    single-device ``grad_shards=8`` training from the same start."""
+    spikes, labels = dataset
+    data = _batch_of(spikes, labels)
+    model, cfg = _models(family)
+    mesh = snn_train_mesh(device="cpu", spoof=8)
+    ps, hs = _train(model, cfg, data, 8, mesh=mesh)
+    p1, h1 = _train(model, cfg, data, 8, grad_shards=8)
+    assert hs["loss"] == h1["loss"], f"{family} loss trajectory"
+    for li, (a, b) in enumerate(zip(ps, p1)):
+        assert torch.equal(a, b), f"{family} params[{li}] diverged"
+
+    steps, lr = 5, 2e-3
+    rmodel = REF_MLP if family == "mlp" else REF_CONV
+    rinit = [np.asarray(w) for w in rmodel.init(jax.random.key(1),
+                                                REF_CFGS[family])]
+    rparams, rhist = ref_train(
+        rmodel, REF_CFGS[family], data,
+        RefTrainConfig(steps=steps, lr=lr, grad_shards=8, log_every=1000),
+        params=[jax.numpy.asarray(w) for w in rinit], log_fn=_quiet)
+    pparams, phist = train_snn_model(
+        model, cfg, data, SNNTrainConfig(steps=steps, lr=lr, mesh=mesh,
+                                         log_every=1000),
+        params=params_from_reference(rinit, "cpu"), log_fn=_quiet)
+    np.testing.assert_allclose(phist["loss"], rhist["loss"], rtol=1e-4)
+    np.testing.assert_allclose(phist["acc"], rhist["acc"], atol=1e-7)
+    for a, b in zip(rparams, pparams):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   atol=lr * steps)
+
+
+def test_elastic_conv_8dev_to_4dev(dataset, tmp_path):
+    """Checkpoint conv-SNN training on a spoofed 8-way mesh at step 4,
+    resume on a 4-way mesh to step 8 (``grad_shards`` pinned to 8): the
+    loss trajectory and final params match the uninterrupted 8-way run
+    exactly."""
+    spikes, labels = dataset
+    data = _batch_of(spikes, labels)
+
+    def phase(n, ckpt, steps):
+        return _train(CONV_MODEL, CONV_CFG, data, steps,
+                      mesh=snn_train_mesh(device="cpu", spoof=n),
+                      grad_shards=8, checkpoint_dir=str(ckpt),
+                      checkpoint_every=4)
+
+    ref, ref_hist = phase(8, tmp_path / "ref", 8)     # uninterrupted
+    _, a_hist = phase(8, tmp_path / "ab", 4)          # checkpoint at 4
+    b, b_hist = phase(4, tmp_path / "ab", 8)          # resume on 4
+    assert a_hist["loss"] == ref_hist["loss"][:4]
+    assert b_hist["loss"] == ref_hist["loss"][4:]
+    for x, y in zip(b, ref):
+        assert torch.equal(x, y), "elastic params diverged"
+
+
+def test_mesh_fallbacks_train_replicated_and_warn(dataset, caplog):
+    """A ``grad_shards`` that is not a multiple of the mesh's split, or a
+    batch the mesh cannot split, trains on the first device alone, says
+    so once, and still equals single-device training."""
+    spikes, labels = dataset
+    data = _batch_of(spikes, labels)
+    cases = ((snn_train_mesh(device="cpu", spoof=4), 2, "not a multiple"),
+             (snn_train_mesh(device="cpu", spoof=3), 4, "does not split"))
+    for mesh, k, words in cases:
+        caplog.clear()
+        with caplog.at_level("WARNING"):
+            p_mesh, h_mesh = _train(MLP_MODEL, MLP_CFG, data, 3, mesh=mesh,
+                                    grad_shards=k)
+        hits = [r for r in caplog.records if words in r.getMessage()]
+        assert len(hits) == 1, [r.getMessage() for r in caplog.records]
+        p1, h1 = _train(MLP_MODEL, MLP_CFG, data, 3, grad_shards=k)
+        assert h_mesh["loss"] == h1["loss"]
+        assert all(torch.equal(a, b) for a, b in zip(p_mesh, p1))
+    with pytest.raises(ValueError, match="mesh's first device"):
+        train_snn_model(MLP_MODEL, MLP_CFG, data,
+                        SNNTrainConfig(steps=1, mesh=cases[0][0]),
+                        device="cuda:0" if torch.cuda.is_available()
+                        else "cpu:1", log_fn=_quiet)

@@ -8,9 +8,11 @@ tests/test_tracing.py: ADMIN metrics and trace).  Every request gets
 exactly one answer, and every served result is held bit for bit against
 the numpy oracle ``repro.core.accelerator.run`` or the reference's packed
 route (``run_batched(model.pack(packed_ops=True))``) on the same layers.
-Two more tests put each package's client against the other's server, one
-runs the launcher's ``--smoke`` script, and one shows that a fault which
-ends the serve loop reaches the caller at once.
+Two more tests put each package's client against the other's server, two
+run the launcher's ``--smoke`` script (on one device, and on a spoofed
+2-way mesh), one shows that a fault which ends the serve loop reaches the
+caller at once, and one that a device loss on a mesh does not: the server
+shrinks its mesh and answers every request.
 
 Every client times out within 30 s and every server thread is joined, so
 a fault fails fast."""
@@ -28,7 +30,8 @@ from repro.core.accelerator import run as oracle_run
 from repro.engine import run_batched as ref_run_batched
 
 from repro_torch.engine import (METRIC_KEYS, BucketPolicy, DeviceLossError,
-                                ModelRegistry, make_chaos_hook)
+                                ModelRegistry, make_chaos_hook,
+                                snn_serve_mesh)
 from repro_torch.launch.socket_serve import (SpikeClient, SpikeSocketServer,
                                              main, serving_thread)
 
@@ -368,6 +371,48 @@ def test_launcher_smoke_on_the_cpu():
     assert lines[-1].startswith(
         "socket-serve smoke: 18 served across 2 tenant(s) (conv=6, mlp=12), "
         "1 hot-swap")
+
+
+def test_launcher_smoke_on_a_spoofed_mesh():
+    """`... socket_serve --models mlp,conv --smoke --device cpu
+    --spoof-devices 2`: the same smoke, every bucket split over a 2-way
+    mesh of the CPU; more real devices than exist are refused."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(["--models", "mlp,conv", "--smoke", "--device", "cpu",
+              "--port", "0", "--spoof-devices", "2"])
+    lines = out.getvalue().splitlines()
+    assert "on cpu, 2-way mesh, 2 tenant(s): mlp, conv" in lines[0]
+    assert lines[-1].startswith(
+        "socket-serve smoke: 18 served across 2 tenant(s) (conv=6, mlp=12), "
+        "1 hot-swap")
+    with pytest.raises(ValueError, match="2-way mesh"):
+        main(["--smoke", "--device", "cpu", "--port", "0", "--data", "2"])
+
+
+def test_device_loss_on_a_mesh_recovers_over_the_wire(rng):
+    """A scripted device loss at the first dispatch of a server on a
+    spoofed 2-way mesh: the mesh shrinks to 1, the connection stays open,
+    and every request is answered bit-exact against the oracle."""
+    ref, packed = _models(4)
+    streams = _streams(rng, packed.n_in, (4, 5, 9, 3))
+    srv = SpikeSocketServer(
+        packed, policy=BucketPolicy(batch_sizes=(2,), time_steps=(10,)),
+        port=0, mesh=snn_serve_mesh(device="cpu", spoof=2),
+        chaos_hook=make_chaos_hook([(0, 1)]))
+    host, port = srv.address
+    with serving_thread(srv, max_requests=len(streams)):
+        cli = SpikeClient(host, port, timeout=TIMEOUT)
+        for s in streams:
+            cli.send(s)
+        cli.recv_all()
+        cli.close()
+    assert srv.server.mesh.size == 1
+    snap = srv.server.metrics.snapshot()
+    assert snap["device_losses"] == 1 and snap["completed"] == len(streams)
+    assert srv.tracer.anomaly_counts.get("device_loss") == 1
+    for i, s in enumerate(streams):
+        np.testing.assert_array_equal(cli.results[i], _oracle(ref, s))
 
 
 def test_serve_thread_fault_reaches_the_caller(rng):

@@ -376,3 +376,51 @@ def test_hot_dispatches_reuse_one_input_buffer(rng):
         ptrs.add(packed.input_buffers[(2, 8)].data_ptr())
     assert list(packed.input_buffers) == [(2, 8)] and len(ptrs) == 1
     assert plain.input_buffers == {}
+
+
+def test_mesh_recovery_rerounds_every_tenant_and_clears_estimates(rng,
+                                                                  models):
+    """A device lost at a dispatch on a spoofed 3-way mesh: the mesh
+    shrinks to 2, every tenant's batch buckets are re-rounded to multiples
+    of 2 (time buckets kept), the estimates measured on 3 devices are
+    dropped, a ``device_loss`` anomaly is recorded, the dispatch is retried
+    on the new bucket, and every request equals the single-device engine's
+    run of it."""
+    from repro_torch.engine import (FlightRecorder, ModelRegistry,
+                                    make_chaos_hook, run_batched,
+                                    snn_serve_mesh)
+    packed = models[1]
+    registry = ModelRegistry(device="cpu")
+    registry.register("a", packed, policy=BucketPolicy(batch_sizes=(1, 3),
+                                                      time_steps=(8,)))
+    registry.register("b", packed, policy=BucketPolicy(batch_sizes=(3, 6),
+                                                      time_steps=(8, 16)))
+    tracer = FlightRecorder()
+    server = StreamServer(registry, clock=VirtualClock(),
+                          mesh=snn_serve_mesh(device="cpu", spoof=3),
+                          chaos_hook=make_chaos_hook([(2, 1)]),
+                          service_model=lambda b, t: 1e-3, tracer=tracer)
+    assert server.mesh.size == 3
+    streams = _streams(rng, (5, 8, 3, 7, 6, 4, 2, 8, 5))
+    rids = []
+    for i, s in enumerate(streams):
+        rids.append(server.submit(s, model="ab"[(i // 3) % 2]))
+    done = dict(server.flush())
+    assert server.mesh.size == 2
+    assert server._policy_for("a").batch_sizes == (2, 4)
+    assert server._policy_for("b").batch_sizes == (4, 6)
+    assert server._policy_for("b").time_steps == (8, 16)
+    # dispatches: a's full bucket twice, then the flush of b's 3 requests,
+    # where the loss fires; only that retried dispatch's estimate is left
+    assert set(server._ewma) == {("b", 4, 8)}
+    snap = server.metrics.snapshot()
+    assert snap["device_losses"] == 1 and snap["completed"] == len(streams)
+    assert tracer.anomaly_counts == {"device_loss": 1}
+    event = next(e for e in tracer.events if e["kind"] == "device_loss")
+    assert (event["n_lost"], event["mesh_from"], event["mesh_to"]) == \
+        (1, 3, 2)
+    assert [t["b_pad"] for t in server.telemetry] == [3, 3, 4]
+    for rid, s in zip(rids, streams):
+        np.testing.assert_array_equal(
+            done[rid].out_spikes,
+            run_batched(packed, s[None], with_stats=False).out_spikes[0])
