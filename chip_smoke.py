@@ -97,6 +97,23 @@ Phases, one line each:
                CIFAR_CONV 2 steps on the mesh with a checkpoint resumed on
                a 1-way mesh to step 4, bit for bit, and the trained conv
                SNN served across the mesh against the oracle
+ 11. lm        the LM serving path, which runs no hand-written kernel
+               (``kernel_launches=0``, each kernel's count set to 0 before
+               the phase and read after it).  ``lm_serve:`` InternLM2-1.8B
+               at full width (24 layers, d_model 2048, GQA 16/8, vocab
+               92544) in bf16, seeded, through launch.serve's ``serve``: 8
+               prompts of 128 tokens from the token pipeline, 32 tokens
+               each; prefill ms, decode ms a step beside the bytes bound
+               of the weights a step reads, tokens/s, peak MiB; one
+               request's decode of token 128 against the full forward over
+               129 tokens, a decode step under set_sync_debug_mode("error"),
+               the card against the CPU at full width cut to 2 layers (one
+               request of 16 tokens), and the prefill's attention through
+               the port's flash_attention beside torch's
+               scaled_dot_product_attention.  ``lm_swa:`` H2O-Danube-1.8B
+               at full width, one request of 4160 tokens (past its 4096
+               window) and 16 decode steps through the ring buffer, each
+               step's logits against the full forward; ms a step
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1834,6 +1851,278 @@ def phase_mesh(dev, card: str, mapped, routes: dict, streams
     return lines, counts
 
 
+# ------------------------------------------------------------- 11. the LM
+
+LM_ARCH = "internlm2_1_8b"
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 128, 32
+LM_CPU_LAYERS, LM_CPU_TOKENS = 2, 16
+LM_SWA_ARCH = "h2o_danube_1_8b"
+LM_SWA_PROMPT, LM_SWA_STEPS = 4160, 16      # past its 4096-token window
+LM_ATOL, LM_RTOL = 0.15, 0.05   # bf16 logits: the reference's own tolerance
+BF16_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense, same sheet
+
+
+def lm_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Require ``got`` within the bf16 tolerance of ``want``; the largest
+    absolute difference."""
+    g, w = got.float().cpu(), want.float().cpu()
+    require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+            f"{what}: finite, shape {tuple(g.shape)} against "
+            f"{tuple(w.shape)}")
+    require(bool(torch.all((g - w).abs() <= LM_ATOL + LM_RTOL * w.abs())),
+            f"{what}: max abs diff {(g - w).abs().max().item()} outside "
+            f"atol {LM_ATOL} rtol {LM_RTOL}")
+    return round((g - w).abs().max().item(), 6)
+
+
+def lm_pad(cache: dict, n: int) -> dict:
+    return {k: torch.nn.functional.pad(v, (0, 0, 0, n))
+            for k, v in cache.items()}
+
+
+def lm_attention(cfg, dev) -> dict:
+    """The prefill's attention shape (LM_REQUESTS x LM_PROMPT, causal, GQA)
+    on seeded bf16 q, k, v: the port's flash_attention (the served path,
+    prefill's chunks) beside torch's scaled_dot_product_attention, with
+    the bound of the work (q, k, v read and o written once; QK^T and PV
+    over the causal half at the bf16 tensor-core rate)."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import flash_attention
+    b, s, h, kh = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(b, s, kh, hd, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+
+    def flash():
+        return flash_attention(q, k, v, causal=True, q_chunk=512,
+                               kv_chunk=512)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    err = (flash().float() - sdpa().float()).abs().max().item()
+    require(err < 0.05, f"flash_attention against SDPA: {err}")
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2
+    nops = 2 * 2 * b * h * hd * s * (s + 1) / 2
+    return dict(attn_shape=f"q[{b},{s},{h},{hd}]kv[{b},{s},{kh},{hd}]",
+                flash_ms=round(cuda_ms(flash), 4),
+                sdpa_ms=round(cuda_ms(sdpa), 4),
+                flash_vs_sdpa_max_abs=round(err, 6),
+                attn_bound_ms=round(bound(nbytes, nops,
+                                          BF16_FLOP_PER_S)["bound_ms"], 5))
+
+
+def lm_decode_profile(step, step_ms: float) -> dict:
+    """One decode step (``step``, warmed up) under the profiler: its
+    kernels, their device time and the device's idle share of
+    ``step_ms``, the step's time without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    device = device_ms_by_name(prof)
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+    return dict(decode_step_kernels=n, decode_device_ms=round(busy, 4),
+                decode_idle_share=round(1 - busy / step_ms, 4),
+                decode_top_ms=json.dumps({k[:40]: round(v, 4)
+                                          for k, v in top}))
+
+
+def lm_card_vs_cpu(cfg, dev) -> dict:
+    """InternLM2-1.8B at full width cut to LM_CPU_LAYERS layers, seeded on
+    the card and copied to the CPU: one request of LM_CPU_TOKENS tokens,
+    prefill logits and cache and one decode step on both, the card held to
+    the port's CPU path."""
+    import dataclasses
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import build_model
+    cut = build_model(dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS))
+    on_card = cut.init(seed=SEED + 41, dtype=torch.bfloat16, device=dev)
+    on_cpu = tree_map(lambda t: t.cpu(), on_card)
+    toks = torch.from_numpy(prompts_for(cfg, 1, LM_CPU_TOKENS + 1))
+    out = {}
+    for name, params in (("card", on_card), ("cpu", on_cpu)):
+        d = params["embed"].device
+        logits, cache = cut.prefill(params, {
+            "tokens": toks[:, :LM_CPU_TOKENS].to(d)})
+        step, cache = cut.decode(params, lm_pad(cache, 1), {
+            "tokens": toks[:, LM_CPU_TOKENS].to(d), "pos": LM_CPU_TOKENS})
+        out[name] = (logits, cache, step)
+    (lc, cc, sc), (lh, ch, sh) = out["card"], out["cpu"]
+    return dict(cpu_layers=LM_CPU_LAYERS, cpu_tokens=LM_CPU_TOKENS,
+                cpu_prefill_max_abs=lm_close(lc, lh, "card prefill vs CPU"),
+                cpu_cache_max_abs=max(lm_close(cc[k], ch[k],
+                                               f"card cache {k} vs CPU")
+                                      for k in ("k", "v")),
+                cpu_decode_max_abs=lm_close(sc, sh, "card decode vs CPU"))
+
+
+def phase_lm_serve(dev, card: str) -> dict:
+    """Phase 11a: InternLM2-1.8B at full width in bf16 (seeded weights)
+    through ``launch.serve.serve``: LM_REQUESTS prompts of LM_PROMPT tokens
+    from the token pipeline, LM_GEN tokens each (one warm-up call of two
+    tokens first).  Then prefill of one request against its full forward
+    (decode of token S against ``transformer_logits`` over S + 1), a decode
+    step under set_sync_debug_mode("error"), the card against the CPU at
+    LM_CPU_LAYERS layers, and the prefill's attention beside SDPA.  Peak
+    memory is the phase's own, above what earlier phases still hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.serve import prompts_for, serve
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    cfg = get_config(LM_ARCH)
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = bundle.init(seed=SEED + 42, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompts = torch.from_numpy(prompts_for(cfg, LM_REQUESTS,
+                                           LM_PROMPT)).to(dev)
+    serve(bundle, params, prompts, 2)
+    out = serve(bundle, params, prompts, LM_GEN)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    toks = out["tokens"]
+    require(toks.shape == (LM_REQUESTS, LM_GEN)
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            and bool(torch.isfinite(out["logits"].float()).all()),
+            f"served tokens {toks.shape}")
+    steps = LM_GEN - 1
+    decode_ms = out["decode_s"] / steps * 1e3
+    # what a decode step must read: every weight but the embedding table,
+    # of which only the batch's rows (the KV cache, at most 63 MB at the
+    # horizon, left out)
+    embed = params["embed"]
+    step_bytes = (param_bytes - embed.numel() * embed.element_size()
+                  + LM_REQUESTS * cfg.d_model * embed.element_size())
+
+    # decode of token S against the full forward over S + 1
+    one = torch.from_numpy(prompts_for(cfg, 1, LM_PROMPT + 1)).to(dev)
+    with torch.no_grad():
+        full, _ = T.transformer_logits(params, cfg, one)
+        _, cache = T.transformer_prefill(params, cfg, one[:, :LM_PROMPT])
+        got, cache = T.transformer_decode_step(
+            params, cfg, lm_pad(cache, 1), one[:, LM_PROMPT], LM_PROMPT)
+        fwd_err = lm_close(got, full[:, -1], "decode vs forward")
+        spec, _ = bundle.cache_spec(LM_REQUESTS, LM_PROMPT + LM_GEN)
+        fresh = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for k, s in spec.items()}
+        def step():
+            return bundle.decode(params, fresh, {"tokens": prompts[:, 0],
+                                                 "pos": LM_PROMPT})
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prof = lm_decode_profile(step, decode_ms)
+        del params, full, cache, fresh
+        torch.cuda.empty_cache()
+        cpu = lm_card_vs_cpu(cfg, dev)
+        attn = lm_attention(cfg, dev)
+    return dict(card=json.dumps(card), arch=LM_ARCH, params=n_params,
+                param_gb=round(param_bytes / 1e9, 4), dtype="bfloat16",
+                init_s=round(init_s, 3), requests=LM_REQUESTS,
+                prompt=LM_PROMPT, gen=LM_GEN,
+                prefill_ms=round(out["prefill_s"] * 1e3, 3),
+                decode_ms_per_step=round(decode_ms, 4),
+                decode_bound_ms=round(step_bytes / HBM_BYTES_PER_S * 1e3, 4),
+                decode_bound_by="bytes",
+                tokens_per_s=round(LM_REQUESTS * steps / out["decode_s"], 2),
+                peak_mib=round(peak_mib, 1),
+                sample=json.dumps(toks[0][:12].tolist()),
+                decode_vs_forward_max_abs=fwd_err, sync_free=True, **prof,
+                **cpu, **attn)
+
+
+def phase_lm_swa(dev, card: str) -> dict:
+    """Phase 11b: H2O-Danube-1.8B at full width in bf16 (seeded), one
+    request of LM_SWA_PROMPT tokens, past its sliding window: prefill keeps
+    a rolled ring buffer of `window` slots, then LM_SWA_STEPS decode steps;
+    the prefill's and every step's logits against ``transformer_logits``
+    over the whole sequence at the same position."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _fit, prompts_for
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    cfg = get_config(LM_SWA_ARCH)
+    bundle = build_model(cfg)
+    total = LM_SWA_PROMPT + LM_SWA_STEPS
+    with torch.no_grad():
+        params = bundle.init(seed=SEED + 43, dtype=torch.bfloat16,
+                             device=dev)
+        toks = torch.from_numpy(prompts_for(cfg, 1, total)).to(dev)
+        full, _ = T.transformer_logits(params, cfg, toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = bundle.prefill(params, {
+            "tokens": toks[:, :LM_SWA_PROMPT]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        require(cache["k"].shape[3] == cfg.window,
+                f"ring buffer of {cfg.window} slots: {cache['k'].shape}")
+        spec, _ = bundle.cache_spec(1, total)
+        cache = {k: _fit(cache[k], s.shape) for k, s in spec.items()}
+        steps = []
+        t0 = time.perf_counter()
+        for i in range(LM_SWA_STEPS):
+            pos = LM_SWA_PROMPT + i
+            logits, cache = bundle.decode(params, cache, {
+                "tokens": toks[:, pos], "pos": pos})
+            steps.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        pre_err = lm_close(last, full[:, LM_SWA_PROMPT - 1],
+                           "SWA prefill vs forward")
+        errs = [lm_close(s, full[:, LM_SWA_PROMPT + i],
+                         f"SWA decode step {i} vs forward")
+                for i, s in enumerate(steps)]
+        del params, full, cache
+        torch.cuda.empty_cache()
+    return dict(card=json.dumps(card), arch=LM_SWA_ARCH, window=cfg.window,
+                prompt=LM_SWA_PROMPT, steps=LM_SWA_STEPS,
+                prefill_ms=round(prefill_s * 1e3, 3),
+                decode_ms_per_step=round(decode_s / LM_SWA_STEPS * 1e3, 4),
+                prefill_vs_forward_max_abs=pre_err,
+                decode_vs_forward_max_abs=max(errs))
+
+
+def phase_lm(dev, card: str) -> tuple[list, dict]:
+    """Phase 11: the LM serving path, which runs no hand-written kernel:
+    the launch counts are set to 0 before it and read after it."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [("lm_serve", phase_lm_serve(dev, card)),
+             ("lm_swa", phase_lm_swa(dev, card))]
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(sum(counts.values()) == 0, f"the LM path launched {counts}")
+    for _, fields in lines:
+        fields["kernel_launches"] = 0
+    return lines, counts
+
+
 def device_ms_by_name(prof) -> dict:
     """Device time in ms of a profiler trace, summed by kernel name (the
     template arguments dropped) and by copy kind."""
@@ -2101,11 +2390,19 @@ def main() -> int:
             counts_mesh["packed"] if row["name"] == "event_synapse_packed"
             else counts_mesh["dense"])[row["name"]]
     phase_s["mesh"] = lap()
+
+    # 11. lm: the LM serving path at full width, no hand-written kernel
+    lm_lines, counts_lm = phase_lm(dev, card)
+    for name, fields in lm_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["lm_launches"] = counts_lm[row["name"]]
+    phase_s["lm"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
-            "train_launches", "mesh_launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "train_launches", "mesh_launches", "lm_launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

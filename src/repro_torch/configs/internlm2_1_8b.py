@@ -1,0 +1,16 @@
+"""InternLM2-1.8B: dense 24L, GQA 16/8 [arXiv:2403.17297; hf]."""
+
+import dataclasses
+
+from repro_torch.configs.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b", family="dense",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_ff=8192, vocab_size=92544, head_dim=128,
+    rope_theta=1_000_000.0,
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab_size=256)

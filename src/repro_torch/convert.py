@@ -15,6 +15,11 @@ The port never imports the reference.  What crosses over is plain numpy:
     :func:`mapped_from_reference` rebuilds a port :class:`MappedModel`
     from such a dict: quantized weights, mappings, every control-memory
     array and the compression pointers, bit for bit.
+  * :func:`lm_params_from_reference` takes the reference LM's parameter
+    tree (nested dicts of numpy arrays, as ``bundle.init`` gives them) and
+    returns the port's tree of the same names and stacked ``[L, ...]``
+    layouts on a device, value for value (bf16 leaves through float32,
+    which holds them exactly).
   * :func:`packed_with_tiles` puts effective weight tiles made by the
     reference — its replayed, possibly noise-perturbed ``[n_src,
     n_dest_pad]`` layer tiles, as numpy — into a port
@@ -34,6 +39,7 @@ from repro_torch.core.energy import AcceleratorSpec
 from repro_torch.core.layers import Conv2d, Dense
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.mapping import MappingSolution
+from repro_torch.core.pytree import tree_map
 from repro_torch.core.memories import MemTables, WeightCompression
 from repro_torch.device import resolve_device
 
@@ -57,6 +63,22 @@ def params_from_reference(params: list[np.ndarray],
     dev = resolve_device(device)
     return [torch.from_numpy(np.array(p, dtype=np.float32)).to(dev)
             for p in params]
+
+
+def lm_params_from_reference(tree: dict, device="cuda") -> dict:
+    """The reference LM's parameter tree as the port's: the same keys, the
+    same shapes and layouts, each leaf in its own floating type on
+    ``device``."""
+    dev = resolve_device(device)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return tree_map(leaf, tree)
 
 
 def specs_from_reference(params: list[np.ndarray]) -> list[Dense]:

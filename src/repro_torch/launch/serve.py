@@ -1,0 +1,128 @@
+"""LM serving launcher, in PyTorch: prefill, then batched greedy decode.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
+      --smoke --requests 8 --prompt-len 16 --gen 16 [--device cuda|cpu]
+
+Weights are seeded (``bundle.init(seed=0)``, bf16); prompts come from the
+synthetic token pipeline (:func:`repro_torch.data.tokens.token_batch`,
+seed 1).  One device: ``--mesh`` other than ``1,1`` and ``--sp``
+(sequence-parallel flash-decoding) raise until the ``parallel/*`` slice
+is ported.  ``--device cuda`` (the default) raises without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.tokens import TokenPipelineConfig, token_batch
+from repro_torch.device import resolve_device
+from repro_torch.models import ModelBundle, build_model
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _fit(t: torch.Tensor, shape) -> torch.Tensor:
+    """Pad/trim the seq dim (axis 3) of a cache tensor to match shape."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    if t.dim() == 5 and tuple(t.shape[:3]) == shape[:3]:
+        d = shape[3] - t.shape[3]
+        if d > 0:
+            return F.pad(t, (0, 0, 0, d))
+        return t[:, :, :, :shape[3]]
+    return torch.zeros(shape, dtype=t.dtype, device=t.device)
+
+
+def prompts_for(cfg, requests: int, prompt_len: int) -> np.ndarray:
+    """``requests`` prompts of ``prompt_len`` tokens [B, S] int32 from the
+    token pipeline (seed 1, step 0)."""
+    pipe = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
+                               global_batch=requests, seed=1)
+    return token_batch(pipe, 0)["tokens"][:, :prompt_len]
+
+
+@torch.no_grad()
+def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
+          gen: int) -> dict:
+    """Prefill ``prompts`` [B, S] (on the parameters' device), pad the cache
+    to the horizon S + gen, and decode greedily until each request has
+    ``gen`` tokens (the prefill's argmax, then ``gen - 1`` decode steps).
+
+    The decode loop keeps every token on the device and reads them back
+    once, after the last step.  Returns ``tokens`` [B, gen] (numpy), the
+    prefill's and the decode loop's seconds, and ``logits``, the
+    last step's logits (on the device)."""
+    cfg = bundle.cfg
+    dev = params["embed"].device
+    b, s = prompts.shape
+    batch = {"tokens": prompts}
+    if cfg.n_image_embeds:
+        batch["image_embeds"] = torch.zeros(
+            (b, cfg.n_image_embeds, cfg.d_model), device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(params, batch)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    spec, _ = bundle.cache_spec(b, s + gen)
+    cache = {k: _fit(cache[k], sp.shape).to(sp.dtype) for k, sp in
+             spec.items()}
+    toks = torch.argmax(logits, dim=-1)
+    outs = [toks]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = bundle.decode(params, cache,
+                                      {"tokens": toks, "pos": s + i})
+        toks = torch.argmax(logits, dim=-1)
+        outs.append(toks)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return {"tokens": torch.stack(outs, 1).cpu().numpy(),
+            "prefill_s": prefill_s, "decode_s": decode_s, "logits": logits}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--mesh", default="1,1")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--sp", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "1,1" or args.sp:
+        raise NotImplementedError(
+            "--mesh other than 1,1 and --sp need the parallel/* slice "
+            "(sharding, MoE and sequence-parallel decode), not ported to "
+            "PyTorch yet")
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    bundle = build_model(cfg)
+    params = bundle.init(seed=0, dtype=torch.bfloat16, device=dev)
+    prompts = torch.from_numpy(
+        prompts_for(cfg, args.requests, args.prompt_len)).to(dev)
+    out = serve(bundle, params, prompts, args.gen)
+    steps = max(args.gen - 1, 1)
+    print(f"prefill: {out['prefill_s'] * 1e3:.0f} ms")
+    print(f"decoded {args.gen - 1} x {args.requests} in "
+          f"{out['decode_s'] * 1e3:.0f} ms "
+          f"({out['decode_s'] / steps * 1e3:.1f} ms/step)")
+    print(f"sample: {out['tokens'][0][:12].tolist()}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

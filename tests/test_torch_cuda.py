@@ -905,3 +905,75 @@ def test_cuda_real_mesh_equals_one_card(two_cards, quant_bits):
         rep = model.replicas[two_cards[1]]
         run_sharded(model, spikes, mesh=mesh)
         assert model.replicas[two_cards[1]] is rep
+
+
+# ------------------------------------------------------------ the LM stack
+
+LM_ATOL, LM_RTOL = 0.15, 0.05     # bf16 logits: the LM twins' tolerance
+
+
+def _lm(arch, device):
+    """A smoke LM's bundle and its seeded weights on the CPU and on
+    ``device``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import build_model
+    bundle = build_model(get_smoke_config(arch))
+    params = bundle.init(seed=0, device="cpu")
+    return bundle, params, tree_map(lambda t: t.to(device), params)
+
+
+def _lm_close(got, want, what):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), atol=LM_ATOL,
+                               rtol=LM_RTOL, err_msg=what)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
+                                  "mixtral_8x7b"])
+def test_cuda_lm_prefill_and_decode_match_cpu(card, arch):
+    """The smoke LMs on the card against the port's CPU path on the same
+    weights: prefill logits and cache (17 tokens, past the SWA window of
+    16), then one decode step's logits and cache."""
+    bundle, cpu, dev = _lm(arch, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, bundle.cfg.vocab_size, (2, 17)).astype(np.int32))
+    want, wcache = bundle.prefill(cpu, {"tokens": toks})
+    got, cache = bundle.prefill(dev, {"tokens": toks.to(card)})
+    _lm_close(got, want, "prefill logits")
+    for k in ("k", "v"):
+        _lm_close(cache[k], wcache[k], f"prefill {k}")
+    spec, _ = bundle.cache_spec(2, 18)
+    wcache = {k: torch.nn.functional.pad(v, (0, 0, 0, s.shape[3]
+                                             - v.shape[3]))
+              for (k, s), v in zip(spec.items(), wcache.values())}
+    cache = {k: v.to(card) for k, v in wcache.items()}
+    nxt = torch.tensor([5, 9], dtype=torch.int32)
+    want, wcache = bundle.decode(cpu, wcache, {"tokens": nxt, "pos": 17})
+    got, cache = bundle.decode(dev, cache, {"tokens": nxt.to(card),
+                                            "pos": 17})
+    _lm_close(got, want, "decode logits")
+    for k in ("k", "v"):
+        _lm_close(cache[k], wcache[k], f"decode {k}")
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mixtral_8x7b"])
+def test_cuda_lm_decode_step_is_sync_free(card, arch):
+    """A decode step reads nothing back from the card: it runs under
+    ``set_sync_debug_mode("error")`` with a Python position (a fill on the
+    card) and with a position already on the card."""
+    bundle, _, dev = _lm(arch, card)
+    spec, _ = bundle.cache_spec(2, 32)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=card)
+             for k, s in spec.items()}
+    toks = torch.tensor([1, 2], device=card)
+    pos_t = torch.tensor(21, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bundle.decode(dev, cache, {"tokens": toks, "pos": 20})
+        logits, _ = bundle.decode(dev, cache, {"tokens": toks,
+                                               "pos": pos_t})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(logits.float()).all()

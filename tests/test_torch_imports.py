@@ -35,7 +35,15 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.engine.snn_train",
                  "repro_torch.launch.socket_serve",
                  "repro_torch.engine.sharded_run",
-                 "repro_torch.launch.serve_snn"):
+                 "repro_torch.launch.serve_snn",
+                 "repro_torch.configs.common",
+                 "repro_torch.configs.internlm2_1_8b",
+                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.data.tokens",
+                 "repro_torch.models.layers",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.api",
+                 "repro_torch.launch.serve"):
         assert name in got["modules"], name
     assert got["leaked"] == [], got["leaked"]
 
