@@ -114,6 +114,30 @@ Phases, one line each:
                at full width, one request of 4160 tokens (past its 4096
                window) and 16 decode steps through the ring buffer, each
                step's logits against the full forward; ms a step
+ 12. lm_models the SSM, hybrid and encoder-decoder LMs, which run no
+               hand-written kernel either (``kernel_launches=0``, counted
+               from 0 over the phase), each at full width in bf16, seeded,
+               through build_model and launch.serve's ``serve``, 8
+               requests, 32 tokens each: ``lm_mamba2:`` Mamba2-2.7B (64
+               layers, d_model 2560, state 128, 80 heads x 64) and
+               ``lm_zamba2:`` Zamba2-2.7B (54 mamba layers, a shared MHA
+               block every 6) on 128-token prompts; ``lm_whisper:``
+               Whisper-medium (24 + 24 layers, d_model 1024) on seeded
+               frames of its native 1500-frame window and 375-token
+               prompts.  Each: prefill ms, decode ms a step beside the
+               bytes bound of what a step moves (weights, the recurrent
+               state read and written, the caches), tokens/s, peak MiB,
+               the profiled step's kernels and idle share; decode against
+               the full forward (Whisper: prefill + one step; Mamba2,
+               Zamba2: every block's decode against its forward on the
+               forward's own inputs, at full depth; end to end, token by
+               token from an empty cache with the SSM state of a prefill
+               against the decoded one, held at 2 Mamba2 layers and
+               measured elsewhere beside the logits' one-ulp
+               sensitivity: random SSM weights amplify rounding about
+               1.2x a layer); a decode step under
+               set_sync_debug_mode("error"); the card against the CPU at
+               2 / 6 / 2 + 2 layers (Zamba2 block by block)
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -125,6 +149,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1862,16 +1887,19 @@ LM_ATOL, LM_RTOL = 0.15, 0.05   # bf16 logits: the reference's own tolerance
 BF16_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense, same sheet
 
 
-def lm_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """Require ``got`` within the bf16 tolerance of ``want``; the largest
+def lm_close(got: torch.Tensor, want: torch.Tensor, what: str,
+             atol: float = LM_ATOL, hold: bool = True) -> float:
+    """Require ``got`` finite, of ``want``'s shape and (where ``hold``)
+    within the bf16 tolerance (``atol``, LM_RTOL) of it; the largest
     absolute difference."""
     g, w = got.float().cpu(), want.float().cpu()
     require(g.shape == w.shape and bool(torch.isfinite(g).all()),
             f"{what}: finite, shape {tuple(g.shape)} against "
             f"{tuple(w.shape)}")
-    require(bool(torch.all((g - w).abs() <= LM_ATOL + LM_RTOL * w.abs())),
+    require(not hold or bool(torch.all((g - w).abs()
+                                       <= atol + LM_RTOL * w.abs())),
             f"{what}: max abs diff {(g - w).abs().max().item()} outside "
-            f"atol {LM_ATOL} rtol {LM_RTOL}")
+            f"atol {atol} rtol {LM_RTOL}")
     return round((g - w).abs().max().item(), 6)
 
 
@@ -2118,6 +2146,378 @@ def phase_lm(dev, card: str) -> tuple[list, dict]:
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     require(sum(counts.values()) == 0, f"the LM path launched {counts}")
+    for _, fields in lines:
+        fields["kernel_launches"] = 0
+    return lines, counts
+
+
+# ------------------------------- 12. the SSM, hybrid and encoder-decoder LMs
+
+LM_FAMILIES = (("lm_mamba2", "mamba2_2_7b"), ("lm_zamba2", "zamba2_2_7b"),
+               ("lm_whisper", "whisper_medium"))
+LM_FWD_TOKENS = 16           # decode against the forward over 16 + 1 tokens
+LM_SSM_ATOL = 0.2            # the reference's tolerance for SSM decode vs
+                             # forward (test_mamba2_decode_matches_forward)
+LM_CUT = {"mamba2_2_7b": dict(n_layers=2),
+          "zamba2_2_7b": dict(n_layers=6),      # one group of hybrid_period
+          "whisper_medium": dict(n_layers=2, n_encoder_layers=2)}
+
+
+def lm_prompt_len(cfg) -> int:
+    """LM_PROMPT tokens, or for Whisper the decoder length of its native
+    30 s encoder window (``cross_len / decoder_ratio`` = 375)."""
+    if cfg.family == "encdec":
+        return cfg.cross_len // cfg.decoder_ratio
+    return LM_PROMPT
+
+
+def lm_frames(cfg, n: int, gen: torch.Generator):
+    """``n`` requests of seeded encoder frames [n, cross_len, d_model]
+    (float32) for Whisper, else None."""
+    if cfg.family != "encdec":
+        return None
+    return torch.randn(n, cfg.cross_len, cfg.d_model, generator=gen,
+                       device=gen.device)
+
+
+def lm_step_bytes(cfg, params: dict, prompt: int) -> float:
+    """The least bytes a decode step of LM_REQUESTS requests moves: every
+    weight it reads, once (the shared Zamba2 block once, though it runs
+    9 times); the embedding's batch rows, or for Whisper's tied head the
+    whole table; the SSM and conv states read and written once; the
+    attention caches' valid slots read once, at the decode loop's mean
+    position; the cross cache whole."""
+    from repro_torch.core.pytree import tree_leaves
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    b, hd = LM_REQUESTS, cfg.resolved_head_dim()
+    valid = prompt + LM_GEN / 2
+    if cfg.family == "encdec":
+        dec = {k: v for k, v in params["decoder"].items()
+               if k not in ("xwk", "xwv")}          # the cross cache holds them
+        kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * hd * 2
+        return (nbytes(dec) + nbytes(params["embed"])
+                + nbytes(params["ln_dec"]) + kv * (cfg.cross_len + valid))
+    d_in = cfg.ssm_expand * cfg.d_model
+    h = d_in // cfg.ssm_head_dim
+    state = cfg.n_layers * b * (h * cfg.ssm_head_dim * cfg.ssm_state * 4
+                                + (cfg.ssm_conv_width - 1) * d_in * 2)
+    total = (nbytes(params) - nbytes(params["embed"])
+             + b * cfg.d_model * 2 + 2 * state)
+    if cfg.family == "hybrid":
+        n_outer = cfg.n_layers // cfg.hybrid_period
+        total += 2 * n_outer * b * cfg.n_kv_heads * hd * 2 * valid
+    return total
+
+
+def lm_blocks(cfg, params) -> list:
+    """Mamba2's or Zamba2's blocks in order, each ``("mamba", weights)`` or
+    ``("shared", weights)``, the weights in bf16."""
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.models.layers import bf16_layers
+    from repro_torch.models.transformer import _layer
+    if cfg.family == "ssm":
+        layers = bf16_layers(params["layers"])
+        return [("mamba", _layer(layers, i)) for i in range(cfg.n_layers)]
+    shared = Z._shared(params)
+    return [blk for group in Z._group_params(params, cfg)
+            for blk in [("mamba", lp) for lp in group] + [("shared", shared)]]
+
+
+def lm_block_run(kind: str, w: dict, cfg, x: torch.Tensor) -> tuple:
+    """One block over ``x`` [1, n, d] both ways: its forward (the output at
+    every token; a mamba block's final SSM state, else None) and its decode
+    step token by token from empty states (the output at the last token;
+    the final SSM state, else None)."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.models.transformer import (_cache_positions,
+                                                _decode_position)
+    b, n, _ = x.shape
+    if kind == "mamba":
+        d_in, h, nst, p = M._dims(cfg)
+        y, state = M.mamba2_block(x, w, cfg)
+        ssm = torch.zeros((b, h, p, nst), device=x.device)
+        conv = torch.zeros((b, cfg.ssm_conv_width - 1, d_in),
+                           dtype=torch.bfloat16, device=x.device)
+        for t in range(n):
+            yd = M.mamba2_block_decode(x[:, t], w, cfg, ssm, conv)
+        return y, state, yd, ssm
+    y, _, _ = Z._shared_block(x, w, cfg,
+                              torch.arange(n, device=x.device).expand(b, n))
+    ck = torch.zeros((b, cfg.n_kv_heads, n, cfg.resolved_head_dim()),
+                     dtype=torch.bfloat16, device=x.device)
+    cv = torch.zeros_like(ck)
+    for t in range(n):
+        pos, slot = _decode_position(cfg, t, ck)
+        yd = Z._shared_block_decode(x[:, t], w, cfg, ck, cv, pos, slot,
+                                    _cache_positions(cfg, n, pos))
+    return y, None, yd, None
+
+
+def lm_layerwise(cfg, params, toks: torch.Tensor, on_cpu=None) -> dict:
+    """Mamba2, Zamba2 teacher-forced, block by block over ``toks`` [1, n]:
+    each block runs on the forward's own inputs to it, so rounding does not
+    compound over depth as it does end to end.  Held: each block's decode
+    (token by token from empty states) against its forward, the output at
+    the last token and the final SSM state (atol LM_SSM_ATOL for a mamba
+    block, whose decode conv runs in float32 where the forward's runs in
+    bf16; LM_ATOL for the shared block); with ``on_cpu``, the same
+    parameters on the CPU, each block there against the card on the card's
+    inputs, forward and decode (atol LM_ATOL)."""
+    from repro_torch.models import mamba2 as M
+    x = M._embed(params, cfg, toks)
+    cpu_blocks = None if on_cpu is None else lm_blocks(cfg, on_cpu)
+    errs: dict = {}
+
+    def note(key, got, want, atol):
+        errs[key] = max(errs.get(key, 0.0),
+                        lm_close(got, want, f"{cfg.name} {key}", atol))
+
+    for i, (kind, w) in enumerate(lm_blocks(cfg, params)):
+        y, state, yd, sd = lm_block_run(kind, w, cfg, x)
+        atol = LM_SSM_ATOL if kind == "mamba" else LM_ATOL
+        note(f"layerwise_{kind}_decode_max_abs", yd, y[:, -1], atol)
+        if state is not None:
+            note("layerwise_state_max_abs", sd, state, atol)
+        if cpu_blocks is not None:
+            got = (y, state, yd, sd)
+            want = lm_block_run(kind, cpu_blocks[i][1], cfg, x.cpu())
+            for name, g, h in zip(("out", "state", "decode", "decode_state"),
+                                  got, want):
+                if g is not None:
+                    note(f"cpu_block_{name}_max_abs", g, h, LM_ATOL)
+        x = y
+    return errs
+
+
+def lm_decode_vs_forward(bundle, params, toks, hold: bool) -> dict:
+    """Mamba2, Zamba2 end to end: ``toks`` [1, n + 1] decoded one by one
+    from an empty cache against ``*_logits`` at the last position, and the
+    SSM state a prefill of n tokens leaves against the state the first n
+    decode steps leave (the prefill's conv tail is zeros by design, so it
+    is left out and checked to be zeros).  Held at LM_SSM_ATOL (and
+    LM_RTOL) where ``hold``, else only measured.  Beside them, the
+    yardstick of what rounding alone does: the forward's logits with every
+    embedding entry moved by one bf16 ulp, against the unmoved ones."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zamba2 as Z
+    cfg = bundle.cfg
+    n = toks.shape[1] - 1
+    logits_of = M.mamba2_logits if cfg.family == "ssm" else Z.zamba2_logits
+    full = logits_of(params, cfg, toks)[:, -1]
+    moved = dict(params, embed=torch.nextafter(
+        params["embed"], torch.full_like(params["embed"], math.inf)))
+    ulp = logits_of(moved, cfg, toks)[:, -1]
+    del moved
+    sensitivity = round((ulp.float() - full.float()).abs().max().item(), 6)
+    spec, _ = bundle.cache_spec(1, n + 1)
+    cache = {k: torch.zeros(sp.shape, dtype=sp.dtype, device=toks.device)
+             for k, sp in spec.items()}
+    for t in range(n + 1):
+        if t == n:
+            decoded = cache["ssm"].clone()
+        logits, cache = bundle.decode(params, cache,
+                                      {"tokens": toks[:, t], "pos": t})
+    _, pre = bundle.prefill(params, {"tokens": toks[:, :n]})
+    require(not bool(pre["conv"].any()), "prefill's conv tail is zeros")
+    return dict(
+        decode_vs_forward_max_abs=lm_close(
+            logits, full, f"{cfg.name} decode vs forward", LM_SSM_ATOL,
+            hold),
+        prefill_state_vs_decode_max_abs=lm_close(
+            pre["ssm"], decoded, f"{cfg.name} prefill state vs decode",
+            LM_SSM_ATOL, hold),
+        forward_ulp_sensitivity_max_abs=sensitivity)
+
+
+def lm_family_vs_forward(bundle, params, prompts, frames) -> dict:
+    """Each family's decode against its full forward at full width and
+    depth, one request.  Whisper: prefill of the whole prompt, then one
+    decode step, against ``whisper_decoder_logits`` over one token more
+    (held).  Mamba2, Zamba2 over LM_FWD_TOKENS + 1 tokens: the
+    teacher-forced layerwise check (held) and the end-to-end comparison
+    (measured: on these random weights a rounding difference grows about
+    1.2x a layer, so at 64 layers decode and forward decorrelate; the
+    end-to-end check is held at LM_CUT's depth, in
+    :func:`lm_family_card_vs_cpu`)."""
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import whisper as W
+    cfg = bundle.cfg
+    dev = prompts.device
+    if cfg.family == "encdec":
+        s = prompts.shape[1]
+        one = torch.from_numpy(prompts_for(cfg, 1, s + 1)).to(dev)
+        enc = W.whisper_encode(params, cfg, frames[:1])
+        full = W.whisper_decoder_logits(params, cfg, one, enc)[:, -1]
+        _, cache = W.whisper_prefill(params, cfg, frames[:1], one[:, :s])
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 1))
+                 if k in ("k", "v") else v for k, v in cache.items()}
+        got, _ = W.whisper_decode_step(params, cfg, cache, one[:, s], s)
+        return dict(decode_vs_forward_max_abs=lm_close(
+            got, full, "whisper decode vs forward"))
+    toks = prompts[:1, :LM_FWD_TOKENS + 1]
+    out = lm_layerwise(cfg, params, toks)
+    e2e = lm_decode_vs_forward(bundle, params, toks, hold=False)
+    out.update({f"full_depth_{k}": v for k, v in e2e.items()})
+    return out
+
+
+def lm_family_card_vs_cpu(arch: str, cfg, dev, seed: int) -> dict:
+    """The configuration at full width cut to LM_CUT's depth, seeded on the
+    card and copied to the CPU: one request of LM_CPU_TOKENS tokens (and,
+    for Whisper, its cross_len seeded frames), the prefill's logits and
+    every cache entry, then one decode step's logits and every entry of the
+    cache it leaves, the card against the port's CPU path.  For Mamba2 and
+    Zamba2 also decode against the forward end to end at this depth, on
+    the card (:func:`lm_decode_vs_forward`), and both checks block by
+    block (:func:`lm_layerwise`, held).  The end-to-end checks are held
+    for Mamba2 at 2 layers, the depth of the reference's own test, and
+    for Whisper; for Zamba2 they are measured, as its 6 layers already
+    amplify rounding past the tolerance (``cut_forward_ulp_sensitivity``
+    shows by how much one ulp moves the forward)."""
+    import dataclasses
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch.serve import _fit, prompts_for
+    from repro_torch.models import build_model
+    cut = build_model(dataclasses.replace(cfg, **LM_CUT[arch]))
+    on_card = cut.init(seed=seed, dtype=torch.bfloat16, device=dev)
+    on_cpu = tree_map(lambda t: t.cpu(), on_card)
+    toks = torch.from_numpy(prompts_for(cfg, 1, LM_CPU_TOKENS + 1))
+    frames = lm_frames(cfg, 1, torch.Generator(device="cpu").manual_seed(
+        seed))
+    spec, _ = cut.cache_spec(1, LM_CPU_TOKENS + 1)
+    out = {}
+    for name, params in (("card", on_card), ("cpu", on_cpu)):
+        d = params["embed"].device
+        batch = {"tokens": toks[:, :LM_CPU_TOKENS].to(d)}
+        if frames is not None:
+            batch["frames"] = frames.to(d)
+        logits, cache = cut.prefill(params, batch)
+        pre = {k: v.clone() for k, v in cache.items()}
+        cache = {k: _fit(cache[k], sp.shape) for k, sp in spec.items()}
+        step, cache = cut.decode(params, cache, {
+            "tokens": toks[:, LM_CPU_TOKENS].to(d), "pos": LM_CPU_TOKENS})
+        out[name] = (logits, pre, step, cache)
+    (lc, pc, sc, cc), (lh, ph, sh, ch) = out["card"], out["cpu"]
+    hold = cfg.family != "hybrid"
+    fields = dict(cpu_layers=json.dumps(LM_CUT[arch]),
+                  cpu_tokens=LM_CPU_TOKENS)
+    if cfg.family != "encdec":
+        toks_card = toks[:, :LM_FWD_TOKENS + 1].to(dev)
+        fields.update({f"cut_{k}": v for k, v in {
+            **lm_decode_vs_forward(cut, on_card, toks_card, hold),
+            **lm_layerwise(cut.cfg, on_card, toks_card, on_cpu)}.items()})
+    return dict(
+        **fields,
+        cpu_prefill_max_abs=lm_close(lc, lh, "card prefill vs CPU",
+                                     hold=hold),
+        cpu_cache_max_abs=max(lm_close(pc[k], ph[k], f"card cache {k} vs CPU",
+                                       hold=hold) for k in pc),
+        cpu_decode_max_abs=lm_close(sc, sh, "card decode vs CPU", hold=hold),
+        cpu_decode_cache_max_abs=max(
+            lm_close(cc[k], ch[k], f"card decoded cache {k} vs CPU",
+                     hold=hold) for k in cc))
+
+
+def phase_lm_family(arch: str, dev, card: str, seed: int) -> dict:
+    """Phase 12, one family: ``arch`` at full width in bf16 (seeded)
+    through ``launch.serve.serve``: LM_REQUESTS prompts from the token
+    pipeline (Whisper: 375-token prompts and seeded frames of its 1500-frame
+    window), LM_GEN tokens each, one warm-up call of two tokens first.
+    Then the decode step's bytes bound, decode against the full forward
+    (:func:`lm_family_vs_forward`), a decode step under
+    set_sync_debug_mode("error") and under the profiler, and the card
+    against the CPU at LM_CUT's depth.  Peak memory is the family's own."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.serve import prompts_for, serve
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    bundle = build_model(cfg)
+    prompt = lm_prompt_len(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        params = bundle.init(seed=seed, dtype=torch.bfloat16, device=dev)
+        frames = lm_frames(cfg, LM_REQUESTS,
+                           torch.Generator(device=dev).manual_seed(seed))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompts = torch.from_numpy(prompts_for(cfg, LM_REQUESTS,
+                                           prompt)).to(dev)
+    serve(bundle, params, prompts, 2, frames)
+    out = serve(bundle, params, prompts, LM_GEN, frames)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    toks = out["tokens"]
+    require(toks.shape == (LM_REQUESTS, LM_GEN)
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            and bool(torch.isfinite(out["logits"].float()).all()),
+            f"{arch} served tokens {toks.shape}")
+    steps = LM_GEN - 1
+    decode_ms = out["decode_s"] / steps * 1e3
+    prefill_ms = out["prefill_s"] * 1e3
+    tokens_per_s = LM_REQUESTS * steps / out["decode_s"]
+    # the weight matmuls of a step (the embedding lookup does none; Whisper's
+    # tied head is a matmul, its cross projections xwk / xwv are not run)
+    step_ops = 2 * LM_REQUESTS * n_params
+    if cfg.family == "encdec":
+        step_ops = 2 * LM_REQUESTS * (
+            sum(v.numel() for k, v in params["decoder"].items()
+                if k not in ("xwk", "xwv")) + params["embed"].numel())
+    else:
+        step_ops -= 2 * LM_REQUESTS * params["embed"].numel()
+    lim = bound(lm_step_bytes(cfg, params, prompt), step_ops,
+                BF16_FLOP_PER_S)
+    with torch.no_grad():
+        fwd = lm_family_vs_forward(bundle, params, prompts, frames)
+        spec, _ = bundle.cache_spec(LM_REQUESTS, prompt + LM_GEN)
+        fresh = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for k, s in spec.items()}
+
+        def step():
+            return bundle.decode(params, fresh, {"tokens": prompts[:, 0],
+                                                 "pos": prompt})
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prof = lm_decode_profile(step, decode_ms)
+        del params, fresh, frames, out
+        torch.cuda.empty_cache()
+        cpu = lm_family_card_vs_cpu(arch, cfg, dev, seed + 1)
+    return dict(card=json.dumps(card), arch=arch, params=n_params,
+                param_gb=round(param_bytes / 1e9, 4), dtype="bfloat16",
+                requests=LM_REQUESTS, prompt=prompt, gen=LM_GEN,
+                prefill_ms=round(prefill_ms, 3),
+                decode_ms_per_step=round(decode_ms, 4),
+                decode_bound_ms=round(lim["bound_ms"], 4),
+                decode_bound_by=lim["bound_by"],
+                tokens_per_s=round(tokens_per_s, 2),
+                peak_mib=round(peak_mib, 1),
+                sample=json.dumps(toks[0][:12].tolist()), **fwd,
+                sync_free=True, **prof, **cpu)
+
+
+def phase_lm_models(dev, card: str) -> tuple[list, dict]:
+    """Phase 12: Mamba2-2.7B, Zamba2-2.7B and Whisper-medium served at full
+    width, which runs no hand-written kernel: the launch counts are set to
+    0 before the phase and read after it."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [(name, phase_lm_family(arch, dev, card, SEED + 50 + 2 * i))
+             for i, (name, arch) in enumerate(LM_FAMILIES)]
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(sum(counts.values()) == 0, f"the LM families launched {counts}")
     for _, fields in lines:
         fields["kernel_launches"] = 0
     return lines, counts
@@ -2398,12 +2798,20 @@ def main() -> int:
     for row in kernels:
         row["lm_launches"] = counts_lm[row["name"]]
     phase_s["lm"] = lap()
+
+    # 12. lm_models: the SSM, hybrid and encoder-decoder LMs at full width
+    lm_lines, counts_lm = phase_lm_models(dev, card)
+    for name, fields in lm_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["lm_models_launches"] = counts_lm[row["name"]]
+    phase_s["lm_models"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
-            "train_launches", "mesh_launches", "lm_launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "on_path")
+            "train_launches", "mesh_launches", "lm_launches",
+            "lm_models_launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))

@@ -53,10 +53,14 @@ def prompts_for(cfg, requests: int, prompt_len: int) -> np.ndarray:
 
 @torch.no_grad()
 def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
-          gen: int) -> dict:
+          gen: int, frames: torch.Tensor | None = None) -> dict:
     """Prefill ``prompts`` [B, S] (on the parameters' device), pad the cache
     to the horizon S + gen, and decode greedily until each request has
     ``gen`` tokens (the prefill's argmax, then ``gen - 1`` decode steps).
+    The ``encdec`` family also encodes ``frames`` [B, S_enc, d_model]; by
+    default zeros of ``S * decoder_ratio`` frames, as the JAX package's
+    launcher builds them.  Its cross cache is then padded with zero keys
+    up to ``cross_len``, or trimmed, and decode attends to every slot.
 
     The decode loop keeps every token on the device and reads them back
     once, after the last step.  Returns ``tokens`` [B, gen] (numpy), the
@@ -66,6 +70,9 @@ def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
     dev = params["embed"].device
     b, s = prompts.shape
     batch = {"tokens": prompts}
+    if cfg.family == "encdec":
+        batch["frames"] = frames if frames is not None else torch.zeros(
+            (b, s * cfg.decoder_ratio, cfg.d_model), device=dev)
     if cfg.n_image_embeds:
         batch["image_embeds"] = torch.zeros(
             (b, cfg.n_image_embeds, cfg.d_model), device=dev)

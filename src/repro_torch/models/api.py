@@ -10,8 +10,9 @@ concrete implementation.  What the launcher and the tests need:
   bundle.decode(params, cache, batch)  -> (logits, cache)
   bundle.cache_spec(batch, len)        -> (meta tensors, axes)
 
-The port builds the transformer families (``dense``, ``moe``, ``vlm``);
-``ssm``, ``hybrid`` and ``encdec`` raise until their models are ported.
+Every family of the registry builds: the transformer (``dense``,
+``moe``, ``vlm``), Mamba2 (``ssm``), Zamba2 (``hybrid``) and Whisper
+(``encdec``); any other family raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import torch
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
+from repro_torch.models import zamba2 as Z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,28 +60,99 @@ class ModelBundle:
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
     fam = cfg.family
-    if fam in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {fam!r} family ({cfg.name}) is not ported to PyTorch yet: "
-            f"models/{{mamba2,zamba2,whisper}}.py are ROADMAP Queue 1 "
-            f"item 6.3")
-    if fam not in ("dense", "moe", "vlm"):
-        raise ValueError(f"unknown family {fam!r}")
-    specs = T.transformer_specs(cfg)
+    if fam in ("dense", "moe", "vlm"):
+        specs = T.transformer_specs(cfg)
 
-    def loss(params, batch):
-        return T.transformer_loss(params, cfg, batch)
+        def loss(params, batch):
+            return T.transformer_loss(params, cfg, batch)
 
-    def prefill(params, batch):
-        return T.transformer_prefill(params, cfg, batch["tokens"],
-                                     batch.get("image_embeds"))
+        def prefill(params, batch):
+            return T.transformer_prefill(params, cfg, batch["tokens"],
+                                         batch.get("image_embeds"))
 
-    def decode(params, cache, batch, attn_impl=T.decode_attention):
-        return T.transformer_decode_step(params, cfg, cache, batch["tokens"],
+        def decode(params, cache, batch, attn_impl=T.decode_attention):
+            return T.transformer_decode_step(params, cfg, cache,
+                                             batch["tokens"], batch["pos"],
+                                             attn_impl)
+
+        def cache_spec(batch, cache_len):
+            return T.cache_spec(cfg, batch, cache_len)
+
+    elif fam == "ssm":
+        specs = M.mamba2_specs(cfg)
+
+        def loss(params, batch):
+            return M.mamba2_loss(params, cfg, batch)
+
+        def prefill(params, batch):
+            return _mamba2_prefill(params, cfg, batch["tokens"])
+
+        def decode(params, cache, batch, attn_impl=None):
+            return M.mamba2_decode_step(params, cfg, cache, batch["tokens"],
+                                        batch["pos"])
+
+        def cache_spec(batch, cache_len):
+            return M.mamba2_cache_spec(cfg, batch)
+
+    elif fam == "hybrid":
+        specs = Z.zamba2_specs(cfg)
+
+        def loss(params, batch):
+            return Z.zamba2_loss(params, cfg, batch)
+
+        def prefill(params, batch):
+            return Z.zamba2_prefill(params, cfg, batch["tokens"])
+
+        def decode(params, cache, batch, attn_impl=T.decode_attention):
+            return Z.zamba2_decode_step(params, cfg, cache, batch["tokens"],
+                                        batch["pos"], attn_impl)
+
+        def cache_spec(batch, cache_len):
+            return Z.zamba2_cache_spec(cfg, batch, cache_len)
+
+    elif fam == "encdec":
+        specs = W.whisper_specs(cfg)
+
+        def loss(params, batch):
+            return W.whisper_loss(params, cfg, batch)
+
+        def prefill(params, batch):
+            return W.whisper_prefill(params, cfg, batch["frames"],
+                                     batch["tokens"])
+
+        def decode(params, cache, batch, attn_impl=T.decode_attention):
+            return W.whisper_decode_step(params, cfg, cache, batch["tokens"],
                                          batch["pos"], attn_impl)
 
-    def cache_spec(batch, cache_len):
-        return T.cache_spec(cfg, batch, cache_len)
+        def cache_spec(batch, cache_len):
+            return W.whisper_cache_spec(cfg, batch, cache_len)
+
+    else:
+        raise ValueError(f"unknown family {fam!r}")
 
     return ModelBundle(cfg=cfg, specs=specs, loss=loss, prefill=prefill,
                        decode=decode, cache_spec=cache_spec)
+
+
+def _mamba2_prefill(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Mamba2 prefill: the full forward, collecting each layer's final SSM
+    state as the cache, and the last token's logits.
+
+    The conv tail (the last ``ssm_conv_width - 1`` inputs of each layer's
+    x-branch) is not kept: the cache holds zeros there, as in the JAX
+    package, so the first decode steps after a prefill see zeros in place
+    of the prompt's last inputs.  Prefill followed by decode is therefore
+    not the full forward; token-by-token decode from an empty cache is."""
+    b, _ = tokens.shape
+    x = M._embed(params, cfg, tokens)
+    layers = L.bf16_layers(params["layers"])
+    states = []
+    for i in range(cfg.n_layers):
+        x, state = M.mamba2_block(x, T._layer(layers, i), cfg)
+        states.append(state)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = x[:, -1] @ params["lm_head"].to(torch.bfloat16)
+    d_in = cfg.ssm_expand * cfg.d_model
+    conv = torch.zeros((cfg.n_layers, b, cfg.ssm_conv_width - 1, d_in),
+                       dtype=torch.bfloat16, device=x.device)
+    return logits, {"ssm": torch.stack(states), "conv": conv}

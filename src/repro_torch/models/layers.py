@@ -131,10 +131,40 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def weak_const(c: float, dtype: torch.dtype) -> float:
+    """The Python constant ``c`` as the JAX package applies it to an array
+    of ``dtype``: JAX's weak typing rounds it to that type first (a
+    product of a bf16 array and ``sqrt(2560)`` multiplies by 50.5)."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it: the sigmoid as
+    ``1 / (1 + exp(-x))``, each step rounded in ``x``'s type (in bf16,
+    ``F.silu`` rounds once and differs in 40 % of the values)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` (``logaddexp(x, 0)``)
+    computes it: ``max(x, 0) + log1p(exp(-|x|))``, each step rounded in
+    ``x``'s type."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU as ``jax.nn.gelu`` (its default)
+    computes it: each step rounded in ``x``'s type, its two constants
+    rounded to that type first."""
+    c = weak_const(math.sqrt(2 / math.pi), x.dtype)
+    k = weak_const(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU FFN: down( silu(x@gate) * (x@up) )."""
-    g = F.silu(x @ w_gate)
+    g = silu(x @ w_gate)
     u = x @ w_up
     return (g * u) @ w_down
 

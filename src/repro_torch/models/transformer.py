@@ -20,13 +20,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
                                        flash_attention, rms_norm,
-                                       rotary_embed, swiglu)
+                                       rotary_embed, silu, swiglu)
 
 
 # ----------------------------------------------------------------- specs
@@ -128,7 +127,7 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig,
     disp = disp.index_add(0, torch.where(keep, slot, e * cap), xf[token_of])
     disp = disp[:e * cap].reshape(e, cap, d)
     # expert FFN
-    g = F.silu(torch.bmm(disp, lp["we_gate"]))
+    g = silu(torch.bmm(disp, lp["we_gate"]))
     u = torch.bmm(disp, lp["we_up"])
     out = torch.bmm(g * u, lp["we_down"]).reshape(e * cap, d)
     # combine
@@ -248,6 +247,30 @@ def _cache_positions(cfg: ArchConfig, clen: int,
     return torch.where(idx <= pos, idx, -1)
 
 
+def _decode_position(cfg: ArchConfig, pos, ck: torch.Tensor):
+    """A decode step's position as a 0-d int64 tensor on the cache's
+    device, and the cache slot [1] it writes.  ``pos`` is a Python int or
+    a 0-d integer tensor (on the cache's device, or the step reads it
+    back); ``ck`` is a ``[..., C, hd]`` cache of C slots.
+
+    A Python ``pos`` becomes a device scalar by a fill, not a copy.  A
+    full-attention cache holds positions below its length: a Python
+    ``pos`` past it raises, a tensor one writes the last slot, as the JAX
+    package's clamped ``dynamic_update_slice`` does; an SWA ring buffer
+    writes slot ``pos % C``."""
+    dev, clen = ck.device, ck.shape[-2]
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=dev, dtype=torch.int64)
+    elif not cfg.window and not 0 <= pos < clen:
+        raise ValueError(f"position {pos} is outside a cache of {clen} "
+                         f"slots")
+    else:
+        pos = torch.full((), pos, dtype=torch.int64, device=dev)
+    slot = (torch.remainder(pos, clen) if cfg.window
+            else torch.clamp(pos, 0, clen - 1)).reshape(1)
+    return pos, slot
+
+
 def decode_attention(q, ck, cv, slot_pos, pos, window):
     """q [B,H,hd]; ck/cv [B,KH,C,hd]; slot_pos [C] absolute positions, -1
     invalid.  Plain attention over the cache: scores in q's type, softmax in
@@ -274,23 +297,11 @@ def transformer_decode_step(params: dict, cfg: ArchConfig, cache: dict,
     reads it back).
 
     Returns (logits [B, V], cache), the cache written in place.  Nothing is
-    read back to the host: a Python ``pos`` becomes a device scalar by a
-    fill, not a copy.  A full-attention cache holds positions below its
-    length: a Python ``pos`` past it raises, a tensor one writes the last
-    slot, as the JAX package's clamped ``dynamic_update_slice`` does.
+    read back to the host (:func:`_decode_position`).
     """
     b = tokens.shape[0]
-    dev = cache["k"].device
     clen = cache["k"].shape[3]
-    if isinstance(pos, torch.Tensor):
-        pos = pos.to(device=dev, dtype=torch.int64)
-    elif not cfg.window and not 0 <= pos < clen:
-        raise ValueError(f"position {pos} is outside a cache of {clen} "
-                         f"slots")
-    else:
-        pos = torch.full((), pos, dtype=torch.int64, device=dev)
-    slot = (torch.remainder(pos, clen) if cfg.window
-            else torch.clamp(pos, 0, clen - 1)).reshape(1)
+    pos, slot = _decode_position(cfg, pos, cache["k"])
     slot_pos = _cache_positions(cfg, clen, pos)
     posb = pos.expand(b, 1)
     x = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)

@@ -930,34 +930,44 @@ def _lm_close(got, want, what):
 
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
-                                  "mixtral_8x7b"])
+                                  "mixtral_8x7b", "mamba2_2_7b",
+                                  "zamba2_2_7b", "whisper_medium"])
 def test_cuda_lm_prefill_and_decode_match_cpu(card, arch):
     """The smoke LMs on the card against the port's CPU path on the same
-    weights: prefill logits and cache (17 tokens, past the SWA window of
-    16), then one decode step's logits and cache."""
+    weights: prefill logits and every cache entry (17 tokens, past the SWA
+    window of 16; Whisper also encodes 8 seeded frames, its smoke
+    ``cross_len``), then one decode step's logits and cache."""
+    from repro_torch.launch.serve import _fit
     bundle, cpu, dev = _lm(arch, card)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, bundle.cfg.vocab_size, (2, 17)).astype(np.int32))
-    want, wcache = bundle.prefill(cpu, {"tokens": toks})
-    got, cache = bundle.prefill(dev, {"tokens": toks.to(card)})
+    cfg = bundle.cfg
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.cross_len, cfg.d_model)).astype(np.float32))
+    want, wcache = bundle.prefill(cpu, batch)
+    got, cache = bundle.prefill(dev, {k: v.to(card)
+                                      for k, v in batch.items()})
     _lm_close(got, want, "prefill logits")
-    for k in ("k", "v"):
+    assert set(cache) == set(wcache)
+    for k in cache:
         _lm_close(cache[k], wcache[k], f"prefill {k}")
     spec, _ = bundle.cache_spec(2, 18)
-    wcache = {k: torch.nn.functional.pad(v, (0, 0, 0, s.shape[3]
-                                             - v.shape[3]))
-              for (k, s), v in zip(spec.items(), wcache.values())}
-    cache = {k: v.to(card) for k, v in wcache.items()}
+    wcache = {k: _fit(wcache[k], s.shape) for k, s in spec.items()}
+    cache = {k: v.to(card, copy=True) for k, v in wcache.items()}
     nxt = torch.tensor([5, 9], dtype=torch.int32)
     want, wcache = bundle.decode(cpu, wcache, {"tokens": nxt, "pos": 17})
     got, cache = bundle.decode(dev, cache, {"tokens": nxt.to(card),
                                             "pos": 17})
     _lm_close(got, want, "decode logits")
-    for k in ("k", "v"):
+    for k in cache:
         _lm_close(cache[k], wcache[k], f"decode {k}")
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mixtral_8x7b"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mixtral_8x7b",
+                                  "mamba2_2_7b", "zamba2_2_7b",
+                                  "whisper_medium"])
 def test_cuda_lm_decode_step_is_sync_free(card, arch):
     """A decode step reads nothing back from the card: it runs under
     ``set_sync_debug_mode("error")`` with a Python position (a fill on the

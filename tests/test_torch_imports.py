@@ -43,6 +43,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.layers",
                  "repro_torch.models.transformer",
                  "repro_torch.models.api",
+                 "repro_torch.models.mamba2",
+                 "repro_torch.models.zamba2",
+                 "repro_torch.models.whisper",
                  "repro_torch.launch.serve"):
         assert name in got["modules"], name
     assert got["leaked"] == [], got["leaked"]

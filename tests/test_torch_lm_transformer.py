@@ -3,8 +3,9 @@ on the reference's own weights (``bundle.init(jax.random.key(0))``, carried
 across by ``lm_params_from_reference``): the full forward, prefill and its
 cache, one decode step and the loss, in bf16 at the reference's bf16
 tolerance; then the port alone: decode against the full forward, the SWA
-ring buffer, and a decode and a train step of every family it builds."""
+ring buffer, and a decode and a train step of every architecture."""
 
+import dataclasses
 import functools
 
 import jax
@@ -19,6 +20,7 @@ from repro.models import transformer as RT
 
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import lm_params_from_reference
+from repro_torch.core.pytree import tree_leaves
 from repro_torch.models import build_model
 from repro_torch.models import transformer as T
 
@@ -28,8 +30,7 @@ from repro_torch.models import transformer as T
 ATOL, RTOL = 0.15, 0.05
 TWINS = ["internlm2_1_8b", "h2o_danube_1_8b", "mixtral_8x7b",
          "internvl2_26b"]
-BUILT = [a for a in ARCH_IDS
-         if get_smoke_config(a).family in ("dense", "moe", "vlm")]
+BUILT = ARCH_IDS
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,12 +250,33 @@ def test_smoke_decode_step(arch):
     assert all(cache2[k].shape == spec[k].shape for k in spec)
 
 
+def _train_batch(cfg, b=2, s=17):
+    """The reference's smoke training batch for ``encdec`` (16 frames of
+    ones, 5 tokens of ones); seeded tokens otherwise."""
+    if cfg.family == "encdec":
+        return {"frames": torch.ones((b, 16, cfg.d_model)),
+                "tokens": torch.ones((b, 5), dtype=torch.int32)}
+    return {"tokens": _t(_inputs(cfg, b=b, s=s)[0])}
+
+
 @pytest.mark.parametrize("arch", BUILT)
 def test_smoke_train_step(arch):
-    """One forward and backward through :class:`Transformer`'s parameters:
-    a finite loss and finite autograd gradients on every leaf."""
+    """One forward and backward: a finite loss and finite autograd
+    gradients on every leaf; for the transformer families through
+    :class:`Transformer`'s parameters, whose forward equals
+    ``transformer_logits``."""
     bundle, params = _port(arch)
     cfg = bundle.cfg
+    if cfg.family not in ("dense", "moe", "vlm"):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = bundle.loss(params, _train_batch(cfg))
+        loss.backward()
+        assert torch.isfinite(loss)
+        for p in leaves:
+            assert p.grad is not None and torch.isfinite(p.grad).all()
+        return
     model = T.Transformer(cfg, params)
     toks, img = _inputs(cfg, b=2, s=17)
     batch = {"tokens": _t(toks)}
@@ -280,9 +302,9 @@ def test_init_on_the_card_raises_without_one():
         build_model(get_smoke_config("internlm2_1_8b")).init(seed=0)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_2_7b",
-                                  "whisper_medium"])
-def test_unported_families_raise(arch):
-    """No fallback for the families whose models are not ported."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.3"):
-        build_model(get_smoke_config(arch))
+def test_unknown_family_raises():
+    """Every family of the registry builds; any other raises."""
+    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build_model(cfg)
