@@ -138,6 +138,28 @@ Phases, one line each:
                1.2x a layer); a decode step under
                set_sync_debug_mode("error"); the card against the CPU at
                2 / 6 / 2 + 2 layers (Zamba2 block by block)
+ 13. lm_mesh   the LM stack's parallel pieces on one-process meshes,
+               spoofed on the one card (real where the host has enough
+               cards; each line's ``mesh:`` says which),
+               which run no hand-written kernel either (counted from 0
+               over the phase); each line counts the shard bodies that ran
+               against shards x layers x calls.  ``lm_moe_ep:``
+               Qwen3-MoE-235B-A22B at full width (128 experts top-8,
+               expert FFN 1536) cut to 2 of 94 layers, served by
+               launch.serve's ``serve(mesh=(2, 4))``, 32 experts a shard;
+               ``lm_moe_tp:`` Mixtral-8x7B at full width cut to 2 of 32
+               layers on a (1, 16) mesh, 896 of d_ff a shard; both 8 x 128
+               prompt tokens, 32 tokens each, with layer 0's meshed MoE
+               against the one-device moe_ffn in float32 (no drops), the
+               combine's orders timed, prefill and decode profiled.
+               ``lm_sp:`` InternLM2-1.8B at full width and depth through
+               ``serve(mesh=(1, 4), sp=True)``, 40 cache slots a shard,
+               every decode step against the un-meshed decode fed the same
+               tokens, a step under set_sync_debug_mode("error").
+               ``pipeline:`` 4 DeepSeek-67B layers at full width as 4
+               stages, 6 microbatches of 2 x 256 tokens through
+               ``pipeline_forward``, equal to ``sequential_reference``.
+               Each also at smoke size on the card against the CPU
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1945,10 +1967,11 @@ def lm_attention(cfg, dev) -> dict:
                                           BF16_FLOP_PER_S)["bound_ms"], 5))
 
 
-def lm_decode_profile(step, step_ms: float) -> dict:
+def lm_decode_profile(step, step_ms: float, prefix: str = "decode") -> dict:
     """One decode step (``step``, warmed up) under the profiler: its
     kernels, their device time and the device's idle share of
-    ``step_ms``, the step's time without the profiler."""
+    ``step_ms``, the step's time without the profiler (fields named after
+    ``prefix``, for a call that is not a decode step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1961,10 +1984,11 @@ def lm_decode_profile(step, step_ms: float) -> dict:
     device = device_ms_by_name(prof)
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
-    return dict(decode_step_kernels=n, decode_device_ms=round(busy, 4),
-                decode_idle_share=round(1 - busy / step_ms, 4),
-                decode_top_ms=json.dumps({k[:40]: round(v, 4)
-                                          for k, v in top}))
+    return {f"{prefix}_step_kernels": n,
+            f"{prefix}_device_ms": round(busy, 4),
+            f"{prefix}_idle_share": round(1 - busy / step_ms, 4),
+            f"{prefix}_top_ms": json.dumps({k[:40]: round(v, 4)
+                                            for k, v in top})}
 
 
 def lm_card_vs_cpu(cfg, dev) -> dict:
@@ -2523,6 +2547,465 @@ def phase_lm_models(dev, card: str) -> tuple[list, dict]:
     return lines, counts
 
 
+# ------------------------------------- 13. the LM on a one-process mesh
+
+MESH_MOE = (("lm_moe_ep", "qwen3_moe_235b_a22b", (2, 4)),
+            ("lm_moe_tp", "mixtral_8x7b", (1, 16)))
+MESH_MOE_LAYERS = 2          # of 94 / 32: what one card holds at full width
+# (the meshes are real where the host has enough cards, else spoofed)
+MESH_SP_ARCH, MESH_SP_SHAPE = "internlm2_1_8b", (1, 4)
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = (
+    "deepseek_67b", 4, 6, 2, 256)
+# the reference's test_moe tolerance; its atol taken relative to the
+# output's scale (the full-width outputs are about 0.1, its test's 1)
+MOE_ATOL_FRAC, MOE_RTOL = 5e-5, 1e-3
+
+
+def lm_mesh(shape, axes, dev):
+    """``shape`` over ``axes``: the first cards where the host has enough
+    of them, else spoofed shards of ``dev``; and the fields that say
+    which."""
+    from repro_torch.launch.mesh import make_mesh
+    n = math.prod(shape)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n:
+        mesh = make_mesh(shape, axes, device="cuda")
+    else:
+        mesh = make_mesh(shape, axes, device=dev, spoof=n)
+    return mesh, dict(mesh="real" if mesh.real else "spoofed",
+                      mesh_shape=json.dumps(mesh.shape),
+                      mesh_device=",".join(sorted({str(d) for d in
+                                                  mesh.devices})))
+
+
+def lm_moe_check(cfg, params, mesh) -> dict:
+    """Layer 0's MoE at full width on the card, ``moe_ffn_sharded`` on
+    ``mesh`` against the card's one-device ``moe_ffn``, both at
+    ``capacity_factor = E`` (no drops), in float32 (the layer's bf16
+    weights widened, exactly; LM_REQUESTS x LM_PROMPT seeded tokens; TF32
+    off): within MOE_ATOL_FRAC of the output's scale plus MOE_RTOL; the
+    meshed MoE run twice, bit for bit."""
+    from repro_torch.device import exact_float32
+    from repro_torch.models.transformer import moe_ffn
+    from repro_torch.parallel.moe import moe_ffn_sharded
+    dev = mesh.devices[0]
+    lp = {k: params["layers"][k][0].float()
+          for k in ("router", "we_gate", "we_up", "we_down")}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    x = torch.randn(LM_REQUESTS, LM_PROMPT, cfg.d_model, generator=gen,
+                    device=dev)
+    e = float(cfg.n_experts)
+    with torch.no_grad(), exact_float32(dev):
+        want, aux_w = moe_ffn(x, lp, cfg, capacity_factor=e)
+        got, aux_g = moe_ffn_sharded(x, lp, cfg, mesh, capacity_factor=e)
+        again, _ = moe_ffn_sharded(x, lp, cfg, mesh, capacity_factor=e)
+    scale = want.abs().max().item()
+    err = (got - want).abs()
+    require(bool((err <= MOE_ATOL_FRAC * scale
+                  + MOE_RTOL * want.abs()).all()),
+            f"{cfg.name} meshed MoE against moe_ffn: max abs "
+            f"{err.max().item()} at scale {scale}")
+    require(torch.equal(got, again), f"{cfg.name} meshed MoE repeats")
+    return dict(moe_check_max_abs=err.max().item(), moe_check_scale=scale,
+                moe_check_tol=f"atol {MOE_ATOL_FRAC} x scale + rtol "
+                              f"{MOE_RTOL}",
+                moe_check_aux=round(aux_g.item(), 6),
+                moe_check_aux_one_device=round(aux_w.item(), 6),
+                moe_repeats=True)
+
+
+def lm_combine_probe(dev, t: int, k: int, d: int, e: int) -> dict:
+    """The local MoE's combine at one shard's shape (t tokens, k float32
+    terms of width d each, experts drawn from e): the expert-ordered sum it
+    runs (``combine``) beside a rank-ordered sum and the atomic
+    ``index_add_`` the one-device ``moe_ffn`` uses; each one's ms, whether
+    it repeats bit for bit over 3 runs, and the largest difference of the
+    two fixed orders."""
+    from repro_torch.parallel.moe import combine
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    eff = torch.rand(t, e, generator=gen, device=dev).topk(k, dim=1).indices
+    order = torch.argsort(eff.reshape(-1), stable=True)
+    contrib = torch.randn(t * k, d, generator=gen, device=dev)
+
+    def expert_order():
+        return combine(contrib, order, eff)
+
+    def rank_order():
+        terms = torch.empty_like(contrib).index_copy_(0, order, contrib)
+        terms = terms.view(t, k, d)
+        y = terms[:, 0]
+        for j in range(1, k):
+            y = y + terms[:, j]
+        return y
+
+    def index_add():
+        return torch.zeros(t, d, device=dev).index_add_(0, order // k,
+                                                        contrib)
+
+    out = {}
+    for name, fn in (("expert_order", expert_order),
+                     ("rank_order", rank_order), ("index_add", index_add)):
+        runs = [fn() for _ in range(3)]
+        out[f"combine_{name}_repeats"] = all(torch.equal(runs[0], r)
+                                             for r in runs[1:])
+        out[f"combine_{name}_ms"] = round(cuda_ms(fn), 4)
+    require(out["combine_expert_order_repeats"], "combine repeats")
+    out["combine_orders_max_abs"] = (expert_order()
+                                     - rank_order()).abs().max().item()
+    out["combine_shape"] = f"t={t},k={k},d={d}"
+    return out
+
+
+def lm_mesh_card_vs_cpu(arch: str, shape, dev, seed: int,
+                        sp: bool = False) -> dict:
+    """The smoke configuration on spoofed meshes of ``shape`` on the card
+    and on the CPU, seeded on the CPU and copied: prefill of 4 requests of
+    LM_CPU_TOKENS tokens under the decode rules (the MoE sharded), then one
+    decode step (with ``sp``, under the SP rules, through the SP attention,
+    the horizon a multiple of the model axis); logits and caches, card
+    against CPU, and the same shard bodies run on both."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch.serve import _fit, prompts_for
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as PM
+    from repro_torch.parallel.decode import make_sp_attention
+    from repro_torch.parallel.sharding import (DECODE_RULES, DECODE_RULES_SP,
+                                               activate)
+    cfg = get_smoke_config(arch)
+    bundle = build_model(cfg)
+    on_cpu = bundle.init(seed=seed, dtype=torch.bfloat16, device="cpu")
+    toks = torch.from_numpy(prompts_for(cfg, 4, LM_CPU_TOKENS + 1))
+    spec, _ = bundle.cache_spec(4, LM_CPU_TOKENS + shape[1])
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda t: t.to(d), on_cpu)
+        mesh, _ = lm_mesh(shape, ("data", "model"), d)
+        kw = {"attn_impl": make_sp_attention(mesh)} if sp else {}
+        PM.reset_body_runs()
+        with torch.no_grad(), activate(mesh, DECODE_RULES_SP if sp
+                                       else DECODE_RULES):
+            logits, cache = bundle.prefill(params, {
+                "tokens": toks[:, :LM_CPU_TOKENS].to(d)})
+            pre = {k: v.clone() for k, v in cache.items()}
+            cache = {k: _fit(cache[k], s.shape) for k, s in spec.items()}
+            step, cache = bundle.decode(params, cache, {
+                "tokens": toks[:, LM_CPU_TOKENS].to(d),
+                "pos": LM_CPU_TOKENS}, **kw)
+        out[name] = (logits, pre, step, dict(PM.body_runs))
+    (lc, pc, sc, rc), (lh, ph, sh, rh) = out["card"], out["cpu"]
+    require(rc == rh and sum(rc.values()) > 0,
+            f"{arch} shard bodies on the card {rc}, on the CPU {rh}")
+    return dict(cpu_config="smoke", cpu_body_runs=json.dumps(rc),
+                cpu_prefill_max_abs=lm_close(lc, lh, "card prefill vs CPU"),
+                cpu_cache_max_abs=max(lm_close(pc[k], ph[k],
+                                               f"card cache {k} vs CPU")
+                                      for k in pc),
+                cpu_decode_max_abs=lm_close(sc, sh, "card decode vs CPU"))
+
+
+def lm_mesh_serve(bundle, params, prompts, mesh, sp: bool, kind: str,
+                  warm_gen: int) -> tuple[dict, int, float]:
+    """A warm-up call of ``warm_gen`` tokens, then the counted call of
+    LM_GEN tokens through ``serve(mesh=, sp=)``: its result, the shard
+    bodies of ``kind`` it ran, and its peak MiB above what was held."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.parallel import mesh as PM
+    serve(bundle, params, prompts, warm_gen, mesh=mesh, sp=sp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    PM.reset_body_runs()
+    out = serve(bundle, params, prompts, LM_GEN, mesh=mesh, sp=sp)
+    runs = PM.body_runs[kind]
+    toks = out["tokens"]
+    require(toks.shape == (LM_REQUESTS, LM_GEN)
+            and ((toks >= 0) & (toks < bundle.cfg.vocab_size)).all()
+            and bool(torch.isfinite(out["logits"].float()).all()),
+            f"{bundle.cfg.name} served tokens {toks.shape}")
+    return out, runs, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def lm_serve_fields(out, params) -> dict:
+    from repro_torch.core.pytree import tree_leaves
+    leaves = tree_leaves(params)
+    steps = LM_GEN - 1
+    return dict(params=sum(t.numel() for t in leaves),
+                param_gb=round(sum(t.numel() * t.element_size()
+                                   for t in leaves) / 1e9, 4),
+                dtype="bfloat16", requests=LM_REQUESTS, prompt=LM_PROMPT,
+                gen=LM_GEN, prefill_ms=round(out["prefill_s"] * 1e3, 3),
+                decode_ms_per_step=round(out["decode_s"] / steps * 1e3, 4),
+                tokens_per_s=round(LM_REQUESTS * steps / out["decode_s"], 2),
+                sample=json.dumps(out["tokens"][0][:12].tolist()))
+
+
+def phase_lm_moe(arch: str, shape, dev, card: str, seed: int) -> dict:
+    """Phase 13, a MoE line: ``arch`` at full width cut to
+    MESH_MOE_LAYERS layers, bf16, seeded, served by ``serve(mesh=)`` on a
+    spoofed ``("data", "model")`` mesh of ``shape``: EP where the experts
+    divide the model axis, else TP over ``d_ff``.  The prefill's MoE runs
+    on every shard (``body_runs``: shards x layers); the decode step keeps
+    the one-device ``moe_ffn``, as in the JAX package.  Then the prefill
+    and a decode step under the profiler, layer 0's meshed MoE against
+    ``moe_ffn`` in float32, the combine's orders, and the card against the
+    CPU at smoke size on the same mesh shape."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import DECODE_RULES, activate
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    bundle = build_model(cfg)
+    mesh, mesh_fields = lm_mesh(shape, ("data", "model"), dev)
+    ep = cfg.n_experts % shape[1] == 0
+    with torch.no_grad():
+        params = bundle.init(seed=seed, dtype=torch.bfloat16, device=dev)
+    prompts = torch.from_numpy(prompts_for(cfg, LM_REQUESTS,
+                                           LM_PROMPT)).to(dev)
+    out, runs, peak_mib = lm_mesh_serve(bundle, params, prompts, mesh,
+                                        False, "moe", 2)
+    want_runs = mesh.size * cfg.n_layers
+    require(runs == want_runs, f"{arch} MoE shard bodies {runs}, "
+                               f"expected {want_runs}")
+    fields = lm_serve_fields(out, params)
+    with torch.no_grad():
+        spec, _ = bundle.cache_spec(LM_REQUESTS, LM_PROMPT + LM_GEN)
+        fresh = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for k, s in spec.items()}
+
+        def step():
+            with activate(mesh, DECODE_RULES):
+                return bundle.decode(params, fresh, {
+                    "tokens": prompts[:, 0], "pos": LM_PROMPT})
+
+        def prefill():
+            with activate(mesh, DECODE_RULES):
+                return bundle.prefill(params, {"tokens": prompts})
+
+        prof = lm_decode_profile(step, fields["decode_ms_per_step"])
+        prof.update(lm_decode_profile(prefill, fields["prefill_ms"],
+                                      "prefill"))
+        check = lm_moe_check(cfg, params, mesh)
+        del params, fresh
+        torch.cuda.empty_cache()
+        n_b = shape[0] if LM_REQUESTS % shape[0] == 0 else 1
+        comb = lm_combine_probe(dev, LM_REQUESTS // n_b * LM_PROMPT,
+                                cfg.top_k, cfg.d_model, cfg.n_experts)
+        cpu = lm_mesh_card_vs_cpu(arch, shape, dev, seed + 1)
+    return dict(card=json.dumps(card), arch=arch, **mesh_fields,
+                mode="EP" if ep else "TP",
+                per_shard=(f"{cfg.n_experts // shape[1]} experts" if ep
+                           else f"{cfg.d_ff // shape[1]} of d_ff {cfg.d_ff}"),
+                layers=f"{cfg.n_layers}/{full.n_layers}",
+                d_model=cfg.d_model, **fields, peak_mib=round(peak_mib, 1),
+                body_runs=runs, body_runs_expected=want_runs, **prof,
+                **check, **comb, **cpu)
+
+
+def phase_lm_sp(dev, card: str, seed: int) -> dict:
+    """Phase 13, ``lm_sp:``: InternLM2-1.8B at full width and depth, bf16,
+    seeded, served by ``serve(mesh=(1, 4), sp=True)`` on a spoofed mesh:
+    the horizon LM_PROMPT + LM_GEN splits over the model axis (else the
+    baseline would run), and every decode step of every layer runs on the
+    4 shards.  Then, fed the same tokens, every decode step's logits
+    against the un-meshed decode (LM_ATOL, LM_RTOL) and how many greedy
+    tokens agree; the un-meshed serve's decode ms beside; a decode step
+    under set_sync_debug_mode("error") and the profiler; the card against
+    the CPU at smoke size."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _fit, prompts_for, serve
+    from repro_torch.models import build_model
+    from repro_torch.parallel.decode import make_sp_attention
+    from repro_torch.parallel.sharding import DECODE_RULES_SP, activate
+    cfg = get_config(MESH_SP_ARCH)
+    bundle = build_model(cfg)
+    mesh, mesh_fields = lm_mesh(MESH_SP_SHAPE, ("data", "model"), dev)
+    m = mesh.shape["model"]
+    horizon = LM_PROMPT + LM_GEN
+    require(horizon % m == 0 and (LM_PROMPT + 4) % m == 0,
+            f"a horizon of {horizon} slots splits over {m} shards")
+    with torch.no_grad():
+        params = bundle.init(seed=seed, dtype=torch.bfloat16, device=dev)
+    prompts = torch.from_numpy(prompts_for(cfg, LM_REQUESTS,
+                                           LM_PROMPT)).to(dev)
+    out, runs, peak_mib = lm_mesh_serve(bundle, params, prompts, mesh, True,
+                                        "sp_attention", 4)
+    want_runs = mesh.size * cfg.n_layers * (LM_GEN - 1)
+    require(runs == want_runs, f"SP attention shard bodies {runs}, "
+                               f"expected {want_runs}")
+    fields = lm_serve_fields(out, params)
+    plain = serve(bundle, params, prompts, LM_GEN)
+    attn = make_sp_attention(mesh)
+    with torch.no_grad():
+        with activate(mesh, DECODE_RULES_SP):
+            logits, cache = bundle.prefill(params, {"tokens": prompts})
+        spec, _ = bundle.cache_spec(LM_REQUESTS, horizon)
+        cache = {k: _fit(cache[k], s.shape) for k, s in spec.items()}
+        base = {k: v.clone() for k, v in cache.items()}
+        tok, errs, agree = logits.argmax(-1), [], 0
+        for i in range(LM_GEN - 1):
+            pos = LM_PROMPT + i
+            with activate(mesh, DECODE_RULES_SP):
+                got, cache = bundle.decode(params, cache, {
+                    "tokens": tok, "pos": pos}, attn_impl=attn)
+            want, base = bundle.decode(params, base, {"tokens": tok,
+                                                      "pos": pos})
+            errs.append(lm_close(got, want, f"SP decode step {i} vs "
+                                            f"un-meshed"))
+            agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+            tok = got.argmax(-1)
+        fresh = {k: torch.zeros_like(v) for k, v in cache.items()}
+
+        def step():
+            with activate(mesh, DECODE_RULES_SP):
+                return bundle.decode(params, fresh, {
+                    "tokens": prompts[:, 0], "pos": LM_PROMPT},
+                    attn_impl=attn)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prof = lm_decode_profile(step, fields["decode_ms_per_step"])
+        del params, cache, base, fresh
+        torch.cuda.empty_cache()
+        cpu = lm_mesh_card_vs_cpu(MESH_SP_ARCH, MESH_SP_SHAPE, dev, seed + 1,
+                                  sp=True)
+    return dict(card=json.dumps(card), arch=MESH_SP_ARCH, **mesh_fields,
+                layers=f"{cfg.n_layers}/{cfg.n_layers}", horizon=horizon,
+                slots_per_shard=horizon // m, **fields,
+                peak_mib=round(peak_mib, 1),
+                unmeshed_decode_ms_per_step=round(
+                    plain["decode_s"] / (LM_GEN - 1) * 1e3, 4),
+                body_runs=runs, body_runs_expected=want_runs,
+                decode_vs_unmeshed_max_abs=max(errs),
+                tokens_agree=f"{agree}/{LM_REQUESTS * (LM_GEN - 1)}",
+                sync_free=True, **prof, **cpu)
+
+
+def pipeline_run(cfg, layers, xs, mesh):
+    """``pipeline_forward`` and ``sequential_reference`` of the port's
+    ``transformer_layer`` (one a stage) over the microbatches ``xs``; the
+    positions are made on the device of the stage that runs."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.pipeline import (pipeline_forward,
+                                               sequential_reference)
+
+    def layer_fn(p, x):
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        return T.transformer_layer(x, p, cfg, positions)[0]
+
+    return (lambda: pipeline_forward(layer_fn, layers, xs, mesh),
+            lambda: sequential_reference(layer_fn, layers, xs))
+
+
+def phase_pipeline(dev, card: str, seed: int) -> dict:
+    """Phase 13, ``pipeline:``: PIPE_STAGES DeepSeek-67B decoder layers at
+    full width (bf16, seeded), one a stage of a spoofed ``("stage",)``
+    mesh, PIPE_MICRO microbatches of PIPE_MB x PIPE_SEQ tokens through
+    ``pipeline_forward`` (``body_runs``: stages x (M + S - 1) ticks),
+    equal to ``sequential_reference`` bit for bit; both timed, the
+    pipeline under the profiler, and the card against the CPU at smoke
+    width (the same schedule)."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import bf16_layers
+    from repro_torch.parallel import mesh as PM
+    full = get_config(PIPE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PIPE_STAGES)
+    mesh, mesh_fields = lm_mesh((PIPE_STAGES,), ("stage",), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        layers = bf16_layers(build_model(cfg).init(
+            seed=seed, dtype=torch.bfloat16, device=dev)["layers"])
+        torch.cuda.empty_cache()
+        xs = torch.randn(PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model,
+                         generator=gen, device=dev, dtype=torch.bfloat16)
+        pipe, seq = pipeline_run(cfg, layers, xs, mesh)
+        pipe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        PM.reset_body_runs()
+        t0 = time.perf_counter()
+        got = pipe()
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        runs = PM.body_runs["pipeline"]
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        t0 = time.perf_counter()
+        want = seq()
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        diff = (got.float() - want.float()).abs().max().item()
+        want_runs = PIPE_STAGES * (PIPE_MICRO + PIPE_STAGES - 1)
+        require(runs == want_runs, f"pipeline stage bodies {runs}, "
+                                   f"expected {want_runs}")
+        require(bool(torch.isfinite(got.float()).all()), "pipeline finite")
+        require(torch.equal(got, want), f"pipeline against sequential: "
+                                        f"max abs {diff}")
+        prof = lm_decode_profile(pipe, pipe_s * 1e3, "pipeline")
+        layer_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(layers)) / PIPE_STAGES / 1e9
+        del layers, xs, got, want
+        torch.cuda.empty_cache()
+        # the card against the CPU: the smoke width, the same schedule
+        small = dataclasses.replace(get_smoke_config(PIPE_ARCH),
+                                    n_layers=PIPE_STAGES)
+        on_cpu = bf16_layers(build_model(small).init(
+            seed=seed + 1, dtype=torch.bfloat16, device="cpu")["layers"])
+        x_cpu = torch.randn(PIPE_MICRO, PIPE_MB, LM_CPU_TOKENS,
+                            small.d_model, generator=torch.Generator(
+                                device="cpu").manual_seed(seed + 1),
+                            dtype=torch.bfloat16)
+        res = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m, _ = lm_mesh((PIPE_STAGES,), ("stage",), d)
+            res[name] = pipeline_run(small, tree_map(lambda t: t.to(d),
+                                                     on_cpu),
+                                     x_cpu.to(d), m)[0]()
+        cpu_err = lm_close(res["card"], res["cpu"], "card pipeline vs CPU")
+    return dict(card=json.dumps(card), arch=PIPE_ARCH, **mesh_fields,
+                layers=f"{PIPE_STAGES}/{full.n_layers}",
+                d_model=cfg.d_model, d_ff=cfg.d_ff,
+                layer_gb=round(layer_gb, 4), microbatches=PIPE_MICRO,
+                microbatch=f"{PIPE_MB}x{PIPE_SEQ}",
+                pipeline_ms=round(pipe_s * 1e3, 3),
+                sequential_ms=round(seq_s * 1e3, 3),
+                tokens_per_s=round(PIPE_MICRO * PIPE_MB * PIPE_SEQ / pipe_s,
+                                   2),
+                peak_mib=round(peak_mib, 1), body_runs=runs,
+                body_runs_expected=want_runs, equal_to_sequential=True,
+                sequential_max_abs=diff, **prof, cpu_max_abs=cpu_err)
+
+
+def phase_lm_mesh(dev, card: str) -> tuple[list, dict]:
+    """Phase 13: the LM stack's parallel pieces on spoofed meshes of the
+    one card (the MoE in EP and TP mode, sequence-parallel decode, the
+    pipeline), which run no hand-written kernel: the launch counts are set
+    to 0 before the phase and read after it."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [(name, phase_lm_moe(arch, shape, dev, card, SEED + 70 + 2 * i))
+             for i, (name, arch, shape) in enumerate(MESH_MOE)]
+    lines.append(("lm_sp", phase_lm_sp(dev, card, SEED + 74)))
+    lines.append(("pipeline", phase_pipeline(dev, card, SEED + 76)))
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(sum(counts.values()) == 0, f"the LM mesh launched {counts}")
+    for _, fields in lines:
+        fields["kernel_launches"] = 0
+    return lines, counts
+
+
 def device_ms_by_name(prof) -> dict:
     """Device time in ms of a profiler trace, summed by kernel name (the
     template arguments dropped) and by copy kind."""
@@ -2806,11 +3289,19 @@ def main() -> int:
     for row in kernels:
         row["lm_models_launches"] = counts_lm[row["name"]]
     phase_s["lm_models"] = lap()
+
+    # 13. lm_mesh: the MoE (EP, TP), SP decode and the pipeline on meshes
+    lm_lines, counts_lm = phase_lm_mesh(dev, card)
+    for name, fields in lm_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["lm_mesh_launches"] = counts_lm[row["name"]]
+    phase_s["lm_mesh"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
             "train_launches", "mesh_launches", "lm_launches",
-            "lm_models_launches", "max_abs_err", "ms", "plain_ms",
+            "lm_models_launches", "lm_mesh_launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

@@ -42,13 +42,13 @@ Serving notes:
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
 
 import numpy as np
 import torch
 
-from repro_torch.device import canonical_device, device_guard, resolve_device
+from repro_torch.device import device_guard
 from repro_torch.engine import batched_run as br
+from repro_torch.parallel.mesh import Mesh, mesh_devices
 
 
 class DeviceLossError(RuntimeError):
@@ -67,61 +67,24 @@ class DeviceLossError(RuntimeError):
 
 
 @dataclasses.dataclass(frozen=True)
-class ServeMesh:
+class ServeMesh(Mesh):
     """A 1-D ``("data",)`` serving mesh: an ordered tuple of devices, one
     per shard.  A device may repeat (a spoofed mesh)."""
 
-    devices: tuple[torch.device, ...]
-    axis_names: ClassVar[tuple[str, ...]] = ("data",)
-
     def __post_init__(self):
-        if not self.devices:
-            raise ValueError("a mesh needs at least one device")
-        object.__setattr__(self, "devices",
-                           tuple(canonical_device(d) for d in self.devices))
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
-
-    @property
-    def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: self.size}
-
-    @property
-    def real(self) -> bool:
-        """Whether every shard has a device of its own (not spoofed)."""
-        return len(set(self.devices)) == self.size
+        super().__post_init__()
+        if self.axis_names != ("data",):
+            raise ValueError(f"a serving mesh has one data axis, not "
+                             f"{self.axis_names}")
 
 
 def snn_serve_mesh(n_data: int | None = None, *, device="cuda",
                    spoof: int | None = None) -> ServeMesh:
-    """The serving topology for pure-DP event streaming.
-
-    Without ``spoof``: the first ``n_data`` devices of ``device``'s kind
-    (default all of them: ``torch.cuda.device_count()`` cards, or the one
-    CPU).  With ``spoof=N``: ``n_data`` (default ``N``) logical shards over
-    the one ``device``.  Asking for more devices than exist (or than are
-    spoofed) raises ``ValueError``; ``device="cuda"`` with no card raises
-    as :func:`~repro_torch.device.resolve_device` does."""
-    dev = resolve_device(device)
-    if spoof is not None:
-        if spoof < 1:
-            raise ValueError(f"spoof needs at least 1 device, got {spoof}")
-        n = spoof if n_data is None else n_data
-        if not 1 <= n <= spoof:
-            raise ValueError(f"asked for a {n}-way mesh over {spoof} "
-                             f"spoofed devices")
-        return ServeMesh((dev,) * n)
-    avail = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-             if dev.type == "cuda" else [dev])
-    n = len(avail) if n_data is None else n_data
-    if not 1 <= n <= len(avail):
-        raise ValueError(
-            f"asked for a {n}-way mesh, but {len(avail)} {dev.type} "
-            f"device(s) exist; spoof shards over one device with spoof=N "
-            f"(--spoof-devices N)")
-    return ServeMesh(tuple(avail[:n]))
+    """The serving topology for pure-DP event streaming: a 1-D mesh over
+    :func:`~repro_torch.parallel.mesh.mesh_devices` (the first ``n_data``
+    devices of ``device``'s kind, or ``spoof=N`` shards of the one
+    ``device``; asking for more than exist raises ``ValueError``)."""
+    return ServeMesh(mesh_devices(n_data, device=device, spoof=spoof))
 
 
 def shrink_mesh(mesh: ServeMesh, n_lost: int) -> ServeMesh:

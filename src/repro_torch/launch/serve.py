@@ -1,13 +1,17 @@
 """LM serving launcher, in PyTorch: prefill, then batched greedy decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
-      --smoke --requests 8 --prompt-len 16 --gen 16 [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \
+      --smoke --requests 8 --prompt-len 16 --gen 16 [--mesh 1,1] [--sp] \
+      [--spoof-devices N] [--device cuda|cpu]
 
 Weights are seeded (``bundle.init(seed=0)``, bf16); prompts come from the
 synthetic token pipeline (:func:`repro_torch.data.tokens.token_batch`,
-seed 1).  One device: ``--mesh`` other than ``1,1`` and ``--sp``
-(sequence-parallel flash-decoding) raise until the ``parallel/*`` slice
-is ported.  ``--device cuda`` (the default) raises without a card.
+seed 1).  ``--mesh d,m`` serves on a ``("data", "model")`` mesh of the
+first ``d * m`` devices (fewer raise), or of ``d * m`` shards of one
+device with ``--spoof-devices N``; prefill and decode run under the
+decode rules, the MoE sharded over ``model``.  ``--sp`` activates
+sequence-parallel flash-decoding (the cache's sequence over ``model``).
+``--device cuda`` (the default) raises without a card.
 """
 
 from __future__ import annotations
@@ -21,8 +25,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import TokenPipelineConfig, token_batch
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ModelBundle, build_model
+from repro_torch.parallel.decode import make_sp_attention
+from repro_torch.parallel.mesh import Mesh
+from repro_torch.parallel.sharding import (DECODE_RULES, DECODE_RULES_SP,
+                                           activate)
 
 
 def _sync(device: torch.device) -> None:
@@ -53,7 +61,8 @@ def prompts_for(cfg, requests: int, prompt_len: int) -> np.ndarray:
 
 @torch.no_grad()
 def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
-          gen: int, frames: torch.Tensor | None = None) -> dict:
+          gen: int, frames: torch.Tensor | None = None, *,
+          mesh: Mesh | None = None, sp: bool = False) -> dict:
     """Prefill ``prompts`` [B, S] (on the parameters' device), pad the cache
     to the horizon S + gen, and decode greedily until each request has
     ``gen`` tokens (the prefill's argmax, then ``gen - 1`` decode steps).
@@ -62,10 +71,26 @@ def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
     launcher builds them.  Its cross cache is then padded with zero keys
     up to ``cross_len``, or trimmed, and decode attends to every slot.
 
+    With a ``mesh`` (``("data", "model")``; the parameters on its first
+    device), prefill and decode run under ``DECODE_RULES``, or with ``sp``
+    under ``DECODE_RULES_SP`` and, where the model axis has more than one
+    shard, decode attends through :func:`make_sp_attention`.
+
     The decode loop keeps every token on the device and reads them back
     once, after the last step.  Returns ``tokens`` [B, gen] (numpy), the
     prefill's and the decode loop's seconds, and ``logits``, the
     last step's logits (on the device)."""
+    if mesh is None:
+        if sp:
+            raise ValueError("sequence-parallel decode needs a mesh")
+        return _serve(bundle, params, prompts, gen, frames, None)
+    attn = (make_sp_attention(mesh) if sp and mesh.shape["model"] > 1
+            else None)
+    with activate(mesh, DECODE_RULES_SP if sp else DECODE_RULES):
+        return _serve(bundle, params, prompts, gen, frames, attn)
+
+
+def _serve(bundle, params, prompts, gen, frames, attn) -> dict:
     cfg = bundle.cfg
     dev = params["embed"].device
     b, s = prompts.shape
@@ -87,9 +112,10 @@ def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
     toks = torch.argmax(logits, dim=-1)
     outs = [toks]
     t0 = time.perf_counter()
+    kw = {} if attn is None else {"attn_impl": attn}
     for i in range(gen - 1):
         logits, cache = bundle.decode(params, cache,
-                                      {"tokens": toks, "pos": s + i})
+                                      {"tokens": toks, "pos": s + i}, **kw)
         toks = torch.argmax(logits, dim=-1)
         outs.append(toks)
     _sync(dev)
@@ -107,21 +133,21 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1,1")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--sp", action="store_true")
+    ap.add_argument("--spoof-devices", type=int, default=None,
+                    help="shards of the mesh on one device")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1,1" or args.sp:
-        raise NotImplementedError(
-            "--mesh other than 1,1 and --sp need the parallel/* slice "
-            "(sharding, MoE and sequence-parallel decode), not ported to "
-            "PyTorch yet")
-    dev = resolve_device(args.device)
+    dm, mm = (int(x) for x in args.mesh.split(","))
+    mesh = make_mesh((dm, mm), ("data", "model"), device=args.device,
+                     spoof=args.spoof_devices)
+    dev = mesh.devices[0]
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = build_model(cfg)
     params = bundle.init(seed=0, dtype=torch.bfloat16, device=dev)
     prompts = torch.from_numpy(
         prompts_for(cfg, args.requests, args.prompt_len)).to(dev)
-    out = serve(bundle, params, prompts, args.gen)
+    out = serve(bundle, params, prompts, args.gen, mesh=mesh, sp=args.sp)
     steps = max(args.gen - 1, 1)
     print(f"prefill: {out['prefill_s'] * 1e3:.0f} ms")
     print(f"decoded {args.gen - 1} x {args.requests} in "

@@ -5,8 +5,12 @@ MoE (qwen3-moe, mixtral) and VLM-backbone (internvl2) architectures, as in
 the JAX package.  Layer weights are stacked along a leading ``layers`` axis
 and cast to bf16 once per call; the layer loop is a Python loop over that
 axis.  Activations run in bf16 from the embedding on, casts placed where
-the JAX package places them.  One device: the sharding annotations of the
-JAX package's mesh are not here, and the MoE always takes :func:`moe_ffn`.
+the JAX package places them.  The JAX package's sharding annotations stand
+where it places them (:func:`~repro_torch.parallel.sharding.shard`, the
+identity on values); under an active mesh with a ``model`` axis of more
+than one device the MoE of prefill and of the full forward takes
+:func:`~repro_torch.parallel.moe.moe_ffn_sharded`, while a decode step
+keeps :func:`moe_ffn`, as in the JAX package.
 
 The functions take the parameters as a nested dict of tensors
 (:meth:`repro_torch.models.api.ModelBundle.init`); :class:`Transformer`
@@ -26,6 +30,7 @@ from repro_torch.configs.common import ArchConfig
 from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
                                        flash_attention, rms_norm,
                                        rotary_embed, silu, swiglu)
+from repro_torch.parallel.sharding import active_mesh, shard
 
 
 # ----------------------------------------------------------------- specs
@@ -125,11 +130,14 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig,
     # dispatch: [e*cap, d]
     disp = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     disp = disp.index_add(0, torch.where(keep, slot, e * cap), xf[token_of])
-    disp = disp[:e * cap].reshape(e, cap, d)
+    disp = shard(disp[:e * cap].reshape(e, cap, d), "act_experts",
+                 "act_expert_cap", "act_embed")
     # expert FFN
     g = silu(torch.bmm(disp, lp["we_gate"]))
     u = torch.bmm(disp, lp["we_up"])
-    out = torch.bmm(g * u, lp["we_down"]).reshape(e * cap, d)
+    out = torch.bmm(g * u, lp["we_down"])
+    out = shard(out, "act_experts", "act_expert_cap", "act_embed").reshape(
+        e * cap, d)
     # combine
     w = (keep * r["gate"].reshape(-1)[order])[:, None].to(x.dtype)
     contrib = out[torch.where(keep, slot, 0)] * w
@@ -148,20 +156,31 @@ def _attn_block(x: torch.Tensor, lp: dict, cfg: ArchConfig,
     q = torch.einsum("bsd,dhk->bshk", h, lp["wq"])
     kk = torch.einsum("bsd,dhk->bshk", h, lp["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, lp["wv"])
+    q = shard(q, "act_batch", "act_seq", "act_heads", "act_head_dim")
+    kk = shard(kk, "act_batch", "act_seq", "act_kv_heads", "act_head_dim")
     q = rotary_embed(q, positions, cfg.rope_theta)
     kk = rotary_embed(kk, positions, cfg.rope_theta)
     o = flash_attention(q, kk, v, causal=True, window=cfg.window,
                         q_chunk=q_chunk, kv_chunk=kv_chunk)
     o = torch.einsum("bshk,hkd->bsd", o, lp["wo"])
-    return x + o, kk, v
+    return x + shard(o, "act_batch", "act_seq", "act_embed"), kk, v
 
 
 def _ffn_block(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.n_experts:
-        y, aux = moe_ffn(h, lp, cfg)
+        # under an active multi-device mesh with a model axis, the meshed
+        # MoE (locality-exact dispatch, one psum); else the one-device one
+        mesh = active_mesh()
+        if mesh is not None and "model" in mesh.axis_names \
+                and mesh.size > 1:
+            from repro_torch.parallel.moe import moe_ffn_sharded
+            y, aux = moe_ffn_sharded(h, lp, cfg, mesh)
+        else:
+            y, aux = moe_ffn(h, lp, cfg)
     else:
         y = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        y = shard(y, "act_batch", "act_seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
@@ -192,6 +211,7 @@ def transformer_logits(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
     x = _embed_prefix(x.to(torch.bfloat16), image_embeds)
+    x = shard(x, "act_batch", "act_seq", "act_embed")
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = bf16_layers(params["layers"])
@@ -201,7 +221,7 @@ def transformer_logits(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(torch.bfloat16)
-    return logits, aux
+    return shard(logits, "act_batch", "act_seq", "act_vocab"), aux
 
 
 def transformer_loss(params, cfg: ArchConfig, batch: dict,
@@ -305,7 +325,7 @@ def transformer_decode_step(params: dict, cfg: ArchConfig, cache: dict,
     slot_pos = _cache_positions(cfg, clen, pos)
     posb = pos.expand(b, 1)
     x = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
-    x = x.to(torch.bfloat16)
+    x = shard(x.to(torch.bfloat16), "act_batch", "act_embed")
     layers = bf16_layers(params["layers"])
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
@@ -326,10 +346,10 @@ def transformer_decode_step(params: dict, cfg: ArchConfig, cache: dict,
             y = y[:, 0]
         else:
             y = swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
-        x = x + y
+        x = shard(x + y, "act_batch", "act_embed")
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(torch.bfloat16)
-    return logits, cache
+    return shard(logits, "act_batch", "act_vocab"), cache
 
 
 def transformer_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -346,7 +366,8 @@ def transformer_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(torch.bfloat16) * math.sqrt(
         cfg.d_model)
-    x = _embed_prefix(x, image_embeds)
+    x = shard(_embed_prefix(x, image_embeds), "act_batch", "act_seq",
+              "act_embed")
     positions = torch.arange(s, device=x.device).expand(b, s)
     layers = bf16_layers(params["layers"])
     ks, vs = [], []
@@ -360,11 +381,14 @@ def transformer_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             w = cfg.window
             ck = torch.roll(ck[:, :, -w:], shifts=s % w, dims=2)
             cv = torch.roll(cv[:, :, -w:], shifts=s % w, dims=2)
-        ks.append(ck.to(torch.bfloat16))
-        vs.append(cv.to(torch.bfloat16))
+        ks.append(shard(ck.to(torch.bfloat16), "cache_batch",
+                        "cache_kv_heads", "cache_seq", "act_head_dim"))
+        vs.append(shard(cv.to(torch.bfloat16), "cache_batch",
+                        "cache_kv_heads", "cache_seq", "act_head_dim"))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x[:, -1] @ params["lm_head"].to(torch.bfloat16)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return (shard(logits, "act_batch", "act_vocab"),
+            {"k": torch.stack(ks), "v": torch.stack(vs)})
 
 
 # ------------------------------------------------------------ as a module

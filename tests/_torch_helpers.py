@@ -4,6 +4,10 @@ field-by-field comparisons of their results."""
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 
 import repro.core.layers as ref_layers
@@ -312,3 +316,56 @@ def assert_grads_close(ref, port, rtol=1e-4, atol_frac=1e-6, ctx=""):
         np.testing.assert_allclose(
             b, a, rtol=rtol, atol=atol_frac * float(np.abs(a).max()),
             err_msg=f"{ctx} grad leaf {i}")
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The prelude of a reference script: on JAX 0.9 ``jax.make_mesh`` builds
+# Explicit axes, under which the JAX package's meshed prefill and pipeline
+# raise; its meshes are built here with Auto axes, as on JAX 0.4.
+AUTO_MESH = """
+import jax
+from jax.sharding import AxisType
+
+def auto_mesh(shape, axes):
+    return jax.make_mesh(tuple(shape), tuple(axes),
+                         axis_types=(AxisType.Auto,) * len(axes))
+"""
+
+
+def run_reference(script: str, devices: int = 8) -> str:
+    """Run ``script`` (after :data:`AUTO_MESH`) in a fresh interpreter on
+    ``devices`` spoofed XLA CPU devices; its standard output."""
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
+    p = subprocess.run([sys.executable, "-c", AUTO_MESH + script],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=600)
+    assert p.returncode == 0, (p.stdout[-2000:], p.stderr[-4000:])
+    return p.stdout
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays as flat ``a/b`` keys (for ``np.savez``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def nested_tree(flat, prefix: str) -> dict:
+    """The keys of ``flat`` under ``prefix`` as the nested dict they came
+    from (:func:`flat_tree`)."""
+    out: dict = {}
+    for key in flat.keys():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(flat[key])
+    return out

@@ -987,3 +987,133 @@ def test_cuda_lm_decode_step_is_sync_free(card, arch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(logits.float()).all()
+
+
+# ---------------------------------------------- the LM on a spoofed mesh
+
+def _spoofed(shape, axes, device):
+    """``shape`` over ``axes`` as spoofed shards of one ``device``."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, device=device, spoof=int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,shape", [("qwen3_moe_235b_a22b", (2, 4)),
+                                        ("mixtral_8x7b", (1, 8))])
+def test_cuda_meshed_moe_matches_cpu(card, arch, shape, dtype):
+    """``moe_ffn_sharded`` in EP mode (qwen3, 2 experts a shard) and TP
+    mode (mixtral, 12 of d_ff a shard) on a spoofed ``cuda:0`` mesh: the
+    card's run repeats bit for bit; in float32 it equals the same mesh on
+    the CPU within the summation order (rtol 1e-5, 1e-5 of the output's
+    scale).  In bf16 the router's logits round per device, so a token
+    whose k-th and next expert lie within a bf16 ulp may route otherwise
+    on the CPU (one token of 256 did on the H100): bf16 is held to
+    repeatability here, and end to end by ``chip_smoke.py``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.parallel.moe import moe_ffn_sharded
+    cfg = get_smoke_config(arch)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    lp = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
+          .to(dt) for k, s in (("router", (d, e)), ("we_gate", (e, d, f)),
+                               ("we_up", (e, d, f)), ("we_down", (e, f, d)))}
+    x = torch.from_numpy(rng.normal(size=(4, 64, d)).astype(np.float32)).to(dt)
+    want, aux_w = moe_ffn_sharded(x, lp, cfg,
+                                  _spoofed(shape, ("data", "model"), "cpu"))
+    mesh = _spoofed(shape, ("data", "model"), card)
+    on_card = {k: v.to(card) for k, v in lp.items()}
+    got, aux = moe_ffn_sharded(x.to(card), on_card, cfg, mesh)
+    again, _ = moe_ffn_sharded(x.to(card), on_card, cfg, mesh)
+    assert torch.equal(got, again) and got.dtype == dt
+    assert torch.isfinite(got.float()).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        np.testing.assert_allclose(float(aux), float(aux_w), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 8])
+def test_cuda_sp_attention_matches_cpu(card, dtype, window):
+    """The SP attention on a spoofed (2, 4) ``cuda:0`` mesh against the
+    CPU's (float32: 1e-5; bf16: 2e-2, the rounding of each shard's
+    output), and ``sp_cache_update`` equal to the CPU's at a slot inside,
+    at a shard's edge and outside every shard."""
+    from repro_torch.parallel.decode import make_sp_attention, sp_cache_update
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    b, h, kh, hd, c, pos = 4, 8, 2, 16, 32, 20
+    q, ck, cv = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(dt) for s in ((b, h, hd), (b, kh, c, hd),
+                                   (b, kh, c, hd)))
+    slot_pos = torch.where(torch.arange(c) <= pos, torch.arange(c), -1)
+    want = make_sp_attention(_spoofed((2, 4), ("data", "model"), "cpu"))(
+        q, ck, cv, slot_pos, torch.tensor(pos), window)
+    mesh = _spoofed((2, 4), ("data", "model"), card)
+    got = make_sp_attention(mesh)(q.to(card), ck.to(card), cv.to(card),
+                                  slot_pos.to(card),
+                                  torch.tensor(pos, device=card), window)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), atol=tol, rtol=tol)
+    kn, vn = (torch.from_numpy(rng.normal(size=(b, kh, hd)).astype(
+        np.float32)).to(dt) for _ in range(2))
+    cpu_mesh = _spoofed((2, 4), ("data", "model"), "cpu")
+    for slot in (5, 8, 40):
+        wk, wv = sp_cache_update(ck.clone(), cv.clone(), kn, vn, slot,
+                                 cpu_mesh)
+        gk, gv = sp_cache_update(ck.to(card), cv.to(card), kn.to(card),
+                                 vn.to(card), torch.tensor(slot, device=card),
+                                 mesh)
+        assert torch.equal(gk.cpu(), wk) and torch.equal(gv.cpu(), wv)
+
+
+def test_cuda_sp_decode_step_is_sync_free(card):
+    """A smoke InternLM2 decode step through the SP attention on a spoofed
+    (1, 4) ``cuda:0`` mesh reads nothing back from the card."""
+    from repro_torch.parallel.decode import make_sp_attention
+    from repro_torch.parallel.sharding import DECODE_RULES_SP, activate
+    bundle, _, dev = _lm("internlm2_1_8b", card)
+    mesh = _spoofed((1, 4), ("data", "model"), card)
+    attn = make_sp_attention(mesh)
+    spec, _ = bundle.cache_spec(2, 32)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=card)
+             for k, s in spec.items()}
+    toks = torch.tensor([1, 2], device=card)
+    with activate(mesh, DECODE_RULES_SP):
+        bundle.decode(dev, cache, {"tokens": toks, "pos": 20},
+                      attn_impl=attn)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = bundle.decode(dev, cache, {"tokens": toks, "pos": 21},
+                                      attn_impl=attn)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(logits.float()).all()
+
+
+def test_cuda_pipeline_matches_cpu_and_sequential(card):
+    """``pipeline_forward`` over a spoofed 4-stage ``cuda:0`` mesh: equal
+    to the card's ``sequential_reference`` bit for bit, and to the CPU's
+    pipeline within float32 rounding (1e-5)."""
+    from repro_torch.parallel.pipeline import (pipeline_forward,
+                                               sequential_reference)
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy((rng.normal(size=(4, 8, 8)) * 0.3).astype(
+        np.float32))
+    xs = torch.from_numpy(rng.normal(size=(6, 3, 8)).astype(np.float32))
+
+    def layer_fn(p, x):
+        return torch.tanh(x @ p["w"])
+
+    want = pipeline_forward(layer_fn, {"w": w}, xs,
+                            _spoofed((4,), ("stage",), "cpu"))
+    params = {"w": w.to(card)}
+    got = pipeline_forward(layer_fn, params, xs.to(card),
+                           _spoofed((4,), ("stage",), card))
+    assert torch.equal(got, sequential_reference(layer_fn, params,
+                                                 xs.to(card)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)

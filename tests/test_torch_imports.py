@@ -46,7 +46,14 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.mamba2",
                  "repro_torch.models.zamba2",
                  "repro_torch.models.whisper",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.parallel",
+                 "repro_torch.parallel.mesh",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.moe",
+                 "repro_torch.parallel.decode",
+                 "repro_torch.parallel.pipeline"):
         assert name in got["modules"], name
     assert got["leaked"] == [], got["leaked"]
 

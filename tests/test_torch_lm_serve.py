@@ -1,7 +1,7 @@
 """The port's LM serving launcher (``repro_torch.launch.serve``): its
 printed lines on the CPU, its greedy tokens against the reference
 launcher's loop on the same bf16 weights and prompts, the cache fitting,
-and the refusals (no card, a mesh, sequence parallelism)."""
+and the refusals (no card, a mesh of more devices than exist)."""
 
 import re
 
@@ -120,8 +120,12 @@ def test_serve_on_the_card_raises_without_one():
         S.main(["--arch", "internlm2_1_8b", "--smoke"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2,1"], ["--sp"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2,1"],
+                                   ["--sp", "--mesh", "1,2"]])
 def test_serve_refuses_a_mesh_and_sequence_parallelism(flags):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """A mesh of more devices than exist is refused, with or without
+    sequence parallelism: the one CPU is not spoofed into two unless
+    ``--spoof-devices`` asks for it."""
+    with pytest.raises(ValueError, match="spoof"):
         S.main(["--arch", "internlm2_1_8b", "--smoke", "--device", "cpu"]
                + flags)
