@@ -160,6 +160,26 @@ Phases, one line each:
                stages, 6 microbatches of 2 x 256 tokens through
                ``pipeline_forward``, equal to ``sequential_reference``.
                Each also at smoke size on the card against the CPU
+ 14. lm_train  LM training through launch.train's ``train``, which runs no
+               hand-written kernel either (counted from 0 over the
+               phase).  ``lm_train:`` InternLM2-1.8B at full width and
+               depth (float32 parameters, seeded; bf16 activations; every
+               layer and q chunk rematerialised), 4 AdamW steps of 4 x 4096
+               tokens (train_4k's sequence, its batch of 256 cut to 4), no
+               checkpoint: step ms (median after one warm step), tokens/s,
+               peak MiB, model FLOPs over the bf16 peak, a profiled step's
+               kernels and idle share; then at 2 layers and seq 1024 the
+               loss and every gradient with and without remat, equal bit
+               for bit, and both peaks.  ``lm_train_100m:`` the twin of
+               examples/train_lm.py --size 100m (12 x 768, GQA 12/4, vocab
+               32000), 8 x 256 tokens, 200 steps, and a run stopped at 100
+               and resumed from its checkpoint, equal bit for bit; the loss
+               falls by a margin fixed on the CPU; ms a step, stragglers.
+               ``lm_train_mesh:`` the smoke elastic restart (4, 2) -> (2, 2)
+               on spoofed meshes, equal to an uninterrupted run; one smoke
+               step on a spoofed (4, 2) mesh equal to the step on the card
+               alone; and one Mixtral smoke step on (1, 2) (the meshed
+               MoE), card against CPU
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1967,14 +1987,16 @@ def lm_attention(cfg, dev) -> dict:
                                           BF16_FLOP_PER_S)["bound_ms"], 5))
 
 
-def lm_decode_profile(step, step_ms: float, prefix: str = "decode") -> dict:
-    """One decode step (``step``, warmed up) under the profiler: its
-    kernels, their device time and the device's idle share of
-    ``step_ms``, the step's time without the profiler (fields named after
-    ``prefix``, for a call that is not a decode step)."""
+def lm_decode_profile(step, step_ms: float, prefix: str = "decode",
+                      warm: bool = True) -> dict:
+    """One decode step (``step``, warmed up first where ``warm``) under the
+    profiler: its kernels, their device time and the device's idle share
+    of ``step_ms``, the step's time without the profiler (fields named
+    after ``prefix``, for a call that is not a decode step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step()
+    if warm:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3006,6 +3028,329 @@ def phase_lm_mesh(dev, card: str) -> tuple[list, dict]:
     return lines, counts
 
 
+# --------------------------------------------------- 14. LM training
+
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4096, 4, 4   # train_4k's seq
+LM_REMAT_LAYERS, LM_REMAT_SEQ = 2, 1024   # what fits without remat
+# examples/train_lm.py --size 100m: 12 x 768, GQA 12/4, vocab 32000
+LM100M = dict(name="lm100m", family="dense", n_layers=12, d_model=768,
+              n_heads=12, n_kv_heads=4, d_ff=3072, vocab_size=32000,
+              head_dim=64)
+LM100M_BATCH, LM100M_SEQ, LM100M_STEPS, LM100M_STOP = 8, 256, 200, 100
+# the fall of the loss, the mean of the first ten less the mean of the
+# last ten: the tiny config of examples/train_lm.py (2 x 128, vocab 2048)
+# through launch.train on the CPU, same batch, seq, lr 3e-4, warm-up 50
+# and 200 steps, falls 8.0094 -> 5.0791 (2.9303); lm100m must fall by at
+# least half of that
+LM100M_MIN_FALL = 1.46
+LM_ELASTIC_STEPS, LM_ELASTIC_MESHES = 20, ((4, 2), (2, 2))
+# card against CPU, a Mixtral smoke step on (1, 2) in bf16: the global
+# gradient's relative error, 0.003004 on the H100 (routing may flip on a
+# near-tie of bf16 router logits, as found for serving), held at 0.01
+LM_GRAD_RTOL = 0.01
+
+
+def lm_train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 N per token (forward and
+    backward of every weight), plus causal attention's two products over
+    half the S x S scores, three times (forward, two in the backward);
+    rematerialisation's recompute is not counted."""
+    hd = cfg.resolved_head_dim()
+    attn = 6 * cfg.n_layers * batch * cfg.n_heads * seq * seq * hd
+    return 6 * n_params * batch * seq + attn
+
+
+def lm_loss_no_remat(cfg):
+    """``transformer_loss`` with every layer's activations kept
+    (``remat=False``): the same function of the parameters."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import cross_entropy
+
+    def loss(params, batch):
+        toks = batch["tokens"]
+        logits, aux = T.transformer_logits(params, cfg, toks[:, :-1],
+                                           batch.get("image_embeds"),
+                                           remat=False)
+        return cross_entropy(logits, toks[:, 1:]) + 0.01 * aux
+
+    return loss
+
+
+def lm_remat_check(cfg, dev) -> dict:
+    """InternLM2-1.8B at full width cut to LM_REMAT_LAYERS layers, seeded,
+    LM_TRAIN_BATCH x LM_REMAT_SEQ tokens: the loss and every gradient with
+    remat (``bundle.loss``) and without, ``torch.equal``; each one's peak
+    memory above the resident parameters."""
+    import dataclasses
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.engine.train_loop import _value_and_grad
+    from repro_torch.launch.train import batch_fn_for
+    from repro_torch.models import build_model
+    cut = dataclasses.replace(cfg, n_layers=LM_REMAT_LAYERS)
+    bundle = build_model(cut)
+    params = bundle.init(seed=SEED + 80, device=dev)
+    batch = batch_fn_for(cut, LM_REMAT_SEQ, LM_TRAIN_BATCH, dev)(0)
+    out = {}
+    for name, fn in (("remat", bundle.loss),
+                     ("no_remat", lm_loss_no_remat(cut))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = _value_and_grad(fn, params, batch)
+        torch.cuda.synchronize()
+        out[name] = (loss, tree_leaves(grads),
+                     (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    (l1, g1, m1), (l0, g0, m0) = out["remat"], out["no_remat"]
+    require(bool(torch.isfinite(l1)) and torch.equal(l1, l0),
+            f"remat loss {l1.item()} against {l0.item()}")
+    require(all(torch.equal(a, b) for a, b in zip(g1, g0)),
+            "remat gradients equal the kept-activation gradients")
+    return dict(remat_layers=LM_REMAT_LAYERS, remat_seq=LM_REMAT_SEQ,
+                remat_loss=round(l1.item(), 6), remat_equal=True,
+                remat_peak_mib=round(m1, 1), no_remat_peak_mib=round(m0, 1))
+
+
+def lm_train_full(dev, card: str) -> dict:
+    """``lm_train:`` InternLM2-1.8B at full width and depth (float32
+    parameters, seeded; bf16 activations, every layer and q chunk
+    rematerialised) through ``launch.train.train``: LM_TRAIN_STEPS AdamW
+    steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens (train_4k's sequence;
+    its batch of 256 cut to what one card holds), no checkpoint.  Step ms
+    (median after one warm step), tokens/s, peak MiB, the model FLOPs'
+    share of the bf16 peak; one more step profiled; then the remat check
+    (:func:`lm_remat_check`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.engine.train_loop import make_train_step
+    from repro_torch.launch.train import batch_fn_for, train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, hist = train(LM_ARCH, steps=LM_TRAIN_STEPS, seq=LM_TRAIN_SEQ,
+                        batch=LM_TRAIN_BATCH, device=dev, log_fn=_quiet)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    losses = hist["loss"]
+    require(len(losses) == LM_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and all(math.isfinite(x) for x in hist["grad_norm"]),
+            f"full-width losses {losses}")
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    step_s = float(np.median(hist["step_time"][1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = lm_train_flops(cfg, n_params, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    step_fn = make_train_step(build_model(cfg).loss, AdamWConfig())
+    batch = batch_fn_for(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                         dev)(LM_TRAIN_STEPS)
+    prof = lm_decode_profile(lambda: step_fn(state, batch), step_s * 1e3,
+                             prefix="train", warm=False)   # trained: warm
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(card=json.dumps(card), arch=LM_ARCH, params=n_params,
+                dtype="float32 params, bf16 activations", remat=True,
+                batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                cut="batch 256 -> 4", steps=LM_TRAIN_STEPS,
+                losses=json.dumps([round(x, 5) for x in losses]),
+                step_ms=round(step_s * 1e3, 3),
+                step_times_ms=json.dumps([round(t * 1e3, 3)
+                                          for t in hist["step_time"]]),
+                train_s=round(train_s, 2),
+                tokens_per_s=round(tokens / step_s, 2),
+                peak_mib=round(peak_mib, 1), model_flops=flops,
+                model_tflop_per_s=round(flops / step_s / 1e12, 3),
+                bf16_peak_share=round(flops / step_s / BF16_FLOP_PER_S, 5),
+                **prof, **lm_remat_check(cfg, dev))
+
+
+def lm_train_100m(dev, card: str) -> dict:
+    """``lm_train_100m:`` the twin of ``examples/train_lm.py --size 100m``
+    (LM100M, float32 parameters, AdamW lr 3e-4 with 50 warm-up steps) on
+    LM100M_BATCH x LM100M_SEQ tokens: LM100M_STEPS steps uninterrupted,
+    checkpointed every LM100M_STOP; then a second run resumed from the
+    checkpoint written at LM100M_STOP (copied to a directory of its own)
+    to LM100M_STEPS, ``torch.equal`` to the first (parameters, optimiser
+    state and every loss after LM100M_STOP); the loss falls by
+    LM100M_MIN_FALL."""
+    import shutil
+    from repro_torch.configs.common import ArchConfig
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.train import train
+    cfg = ArchConfig(**LM100M)
+    root = ROOT / "build" / "lm_train_100m"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(seq=LM100M_SEQ, batch=LM100M_BATCH, lr=3e-4, warmup_steps=50,
+              checkpoint_every=LM100M_STOP, device=dev, log_fn=_quiet)
+    try:
+        whole, hist = train(cfg, steps=LM100M_STEPS, ckpt=str(root / "a"),
+                            **kw)
+        stop = f"step_{LM100M_STOP:08d}"
+        shutil.copytree(root / "a" / stop, root / "b" / stop)
+        resumed, rest = train(cfg, steps=LM100M_STEPS, ckpt=str(root / "b"),
+                              **kw)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(rest["start"] == LM100M_STOP, f"resumed at {rest['start']}")
+    require(rest["loss"] == hist["loss"][LM100M_STOP:],
+            "the resumed losses equal the uninterrupted run's")
+    require(all(torch.equal(a, b) for a, b in zip(tree_leaves(whole),
+                                                  tree_leaves(resumed))),
+            "the resumed state equals the uninterrupted run's")
+    losses = hist["loss"]
+    fall = float(np.mean(losses[:10]) - np.mean(losses[-10:]))
+    require(all(math.isfinite(x) for x in losses)
+            and fall >= LM100M_MIN_FALL,
+            f"lm100m loss fell by {fall} (at least {LM100M_MIN_FALL})")
+    n_params = sum(t.numel() for t in tree_leaves(whole["params"]))
+    step_s = float(np.median(hist["step_time"][1:]))
+    return dict(card=json.dumps(card), config=json.dumps(LM100M),
+                params=n_params, batch=LM100M_BATCH, seq=LM100M_SEQ,
+                steps=LM100M_STEPS, stopped_at=LM100M_STOP,
+                resume_equal=True, loss_first=round(losses[0], 5),
+                loss_last=round(losses[-1], 5), loss_fall=round(fall, 5),
+                min_fall=LM100M_MIN_FALL, step_ms=round(step_s * 1e3, 3),
+                tokens_per_s=round(LM100M_BATCH * LM100M_SEQ / step_s, 2),
+                stragglers=hist["stragglers"],
+                resumed_stragglers=rest["stragglers"],
+                checkpoints=json.dumps(hist["checkpoints"]))
+
+
+def lm_elastic(dev) -> dict:
+    """The twin of tests/test_elastic.py on spoofed meshes of the card:
+    the smoke InternLM2 (seq 32, batch 8, AdamW lr 1e-3, one warm-up step)
+    LM_ELASTIC_STEPS // 2 steps on the first mesh with a checkpoint,
+    resumed on the second to LM_ELASTIC_STEPS, against an uninterrupted
+    run on the first: ``torch.equal``."""
+    import shutil
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.train import train
+    root = ROOT / "build" / "lm_train_elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    (d1, m1), (d2, m2) = LM_ELASTIC_MESHES
+    half = LM_ELASTIC_STEPS // 2
+    kw = dict(smoke=True, seq=32, batch=8, lr=1e-3, warmup_steps=1,
+              checkpoint_every=half, device=dev, log_fn=_quiet)
+    try:
+        whole, hist = train(LM_ARCH, steps=LM_ELASTIC_STEPS,
+                            mesh=(d1, m1), spoof_devices=d1 * m1, **kw)
+        _, a = train(LM_ARCH, steps=half, mesh=(d1, m1),
+                     spoof_devices=d1 * m1, ckpt=str(root), **kw)
+        resumed, b = train(LM_ARCH, steps=LM_ELASTIC_STEPS, mesh=(d2, m2),
+                           spoof_devices=d2 * m2, ckpt=str(root), **kw)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(b["start"] == half, f"elastic resume at {b['start']}")
+    require(a["loss"] + b["loss"] == hist["loss"]
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(whole),
+                                                      tree_leaves(resumed))),
+            "the elastic restart equals the uninterrupted run")
+    return dict(elastic=json.dumps([list(m) for m in LM_ELASTIC_MESHES]),
+                elastic_steps=LM_ELASTIC_STEPS, elastic_resumed_at=half,
+                elastic_equal=True, elastic_loss=round(hist["loss"][-1], 6))
+
+
+def lm_spmd_step(dev) -> dict:
+    """The twin of test_sharding.py::test_train_step_spmd_8dev on the card:
+    one smoke InternLM2 train step (AdamW lr 1e-3, one warm-up step, a
+    batch of ones [8, 17]) on a spoofed (4, 2) mesh under the training
+    rules, equal bit for bit to the step on the card alone."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.engine.train_loop import (init_train_state,
+                                               make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import TRAIN_RULES, activate
+    bundle = build_model(get_smoke_config(LM_ARCH))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = make_train_step(bundle.loss, opt)
+    batch = {"tokens": torch.ones((8, 17), dtype=torch.int32, device=dev)}
+    out = []
+    for shape in ((4, 2), None):
+        state = init_train_state(None, bundle.init(seed=SEED + 84,
+                                                   device=dev), opt).as_tree()
+        if shape is None:
+            out.append(step(state, batch))
+            continue
+        mesh, _ = lm_mesh(shape, ("data", "model"), dev)
+        with activate(mesh, TRAIN_RULES):
+            out.append(step(state, batch))
+    (new, metrics), (want, wmetrics) = out
+    require(bool(torch.isfinite(metrics["loss"]))
+            and all(torch.equal(metrics[k], wmetrics[k]) for k in wmetrics)
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(new),
+                                                      tree_leaves(want))),
+            "the (4, 2) mesh step equals the one-device step")
+    return dict(spmd_mesh="[4, 2]", spmd_equal=True,
+                spmd_loss=round(metrics["loss"].item(), 6))
+
+
+def lm_moe_step_card_vs_cpu(dev) -> dict:
+    """One Mixtral smoke train step's loss and gradient on a spoofed
+    (1, 2) mesh under the training rules (the meshed MoE), seeded on the
+    CPU and copied: the card against the CPU, the loss at the bf16
+    tolerance, the whole gradient within LM_GRAD_RTOL of its norm; the
+    same shard bodies on both."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.engine.train_loop import _value_and_grad
+    from repro_torch.launch.train import batch_fn_for
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as PM
+    from repro_torch.parallel.sharding import TRAIN_RULES, activate
+    cfg = get_smoke_config("mixtral_8x7b")
+    bundle = build_model(cfg)
+    on_cpu = bundle.init(seed=SEED + 82, device="cpu")
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        mesh, _ = lm_mesh((1, 2), ("data", "model"), d)
+        PM.reset_body_runs()
+        with activate(mesh, TRAIN_RULES):
+            loss, grads = _value_and_grad(
+                bundle.loss, tree_map(lambda t: t.to(d), on_cpu),
+                batch_fn_for(cfg, 64, 8, d)(0))
+        flat = torch.cat([g.reshape(-1).float().cpu()
+                          for g in tree_leaves(grads)])
+        out[name] = (loss.cpu(), flat, dict(PM.body_runs))
+    (lc, gc, rc), (lh, gh, rh) = out["card"], out["cpu"]
+    require(rc == rh and rc.get("moe", 0) > 0,
+            f"MoE shard bodies on the card {rc}, on the CPU {rh}")
+    rel = ((gc - gh).norm() / gh.norm()).item()
+    require(bool(torch.isfinite(gc).all()) and rel <= LM_GRAD_RTOL,
+            f"Mixtral step gradient, card against CPU: relative {rel}")
+    return dict(moe_step_body_runs=json.dumps(rc),
+                moe_step_loss_max_abs=lm_close(lc, lh,
+                                               "Mixtral step loss vs CPU"),
+                moe_step_grad_rel=round(rel, 6),
+                moe_step_grad_rtol=LM_GRAD_RTOL)
+
+
+def phase_lm_train(dev, card: str) -> tuple[list, dict]:
+    """Phase 14: LM training through ``launch.train.train``, which runs no
+    hand-written kernel: the launch counts are set to 0 before the phase
+    and read after it."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [("lm_train", lm_train_full(dev, card)),
+             ("lm_train_100m", lm_train_100m(dev, card)),
+             ("lm_train_mesh", dict(card=json.dumps(card), **lm_elastic(dev),
+                                    **lm_spmd_step(dev),
+                                    **lm_moe_step_card_vs_cpu(dev)))]
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(sum(counts.values()) == 0, f"LM training launched {counts}")
+    for _, fields in lines:
+        fields["kernel_launches"] = 0
+    return lines, counts
+
+
 def device_ms_by_name(prof) -> dict:
     """Device time in ms of a profiler trace, summed by kernel name (the
     template arguments dropped) and by copy kind."""
@@ -3297,11 +3642,21 @@ def main() -> int:
     for row in kernels:
         row["lm_mesh_launches"] = counts_lm[row["name"]]
     phase_s["lm_mesh"] = lap()
+
+    # 14. lm_train: InternLM2-1.8B trained at full width, lm100m resumed,
+    # the elastic restart and the meshed MoE step
+    lm_lines, counts_lm = phase_lm_train(dev, card)
+    for name, fields in lm_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["lm_train_launches"] = counts_lm[row["name"]]
+    phase_s["lm_train"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
             "train_launches", "mesh_launches", "lm_launches",
-            "lm_models_launches", "lm_mesh_launches", "max_abs_err", "ms", "plain_ms",
+            "lm_models_launches", "lm_mesh_launches", "lm_train_launches",
+            "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

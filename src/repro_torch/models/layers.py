@@ -22,12 +22,14 @@ before the PV product.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
@@ -99,6 +101,50 @@ def abstract_params(specs: Any, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------- primitives
+
+def checkpointed(fn, *args, enabled: bool = True):
+    """``fn(*args)``, rematerialised where ``enabled`` and grad is on: the
+    backward keeps only ``args`` and recomputes ``fn``'s activations from
+    them (``torch.utils.checkpoint``, non-reentrant, so weights ``fn``
+    reaches through a dict or a closure get their gradients too), as
+    ``jax.checkpoint`` does.  The recomputation runs under the sharding
+    rules active at the call: on the card autograd runs the backward on a
+    thread of its own, where the caller's thread-local rules (and with
+    them the meshed MoE branch) would be missing.  The values are those
+    of the plain call; under ``no_grad`` (serving, decode) it is the plain
+    call."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    from repro_torch.parallel.sharding import activate, current_rules
+    rules = current_rules()
+
+    def contexts():
+        return (contextlib.nullcontext(),
+                contextlib.nullcontext() if rules is None
+                else activate(rules.mesh, rules.rules))
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=contexts)
+
+
+def layer_list(layers: dict) -> list[dict]:
+    """A stacked ``[L, ...]`` weight tree as L per-layer dicts of views,
+    one ``unbind`` a leaf: the backward stacks a leaf's L gradients once,
+    where L indexed views would each scatter theirs into a zero tensor of
+    the whole stack."""
+    keys = list(layers)
+    return [dict(zip(keys, views))
+            for views in zip(*(layers[k].unbind(0) for k in keys))]
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` [V, d] at ``tokens`` (``F.embedding``): the
+    values of ``table[tokens]``, whose backward (``index_put_`` with
+    accumulation) sums a repeated token's gradients in a different order
+    from run to run on the CPU; the embedding's sums in a fixed order, so a
+    training run repeats bit for bit."""
+    return F.embedding(tokens.long(), table)
+
 
 def bf16_layers(tree):
     """Cast a stacked-layer param tree's floating leaves to bf16 once per
@@ -225,6 +271,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The zero keys that pad the last kv chunk are masked in every call; the
     JAX package's version masks them only through the causal test, so its
     non-causal calls with ``Sk`` not a multiple of ``kv_chunk`` count them.
+    With grad on, each q chunk's kv loop is rematerialised
+    (:func:`checkpointed`, the JAX package's ``jax.checkpoint(one_q_chunk)``):
+    the backward keeps the chunk's inputs, not its float32 score tiles.
     """
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
@@ -241,9 +290,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qp = qp.reshape(b, nq, q_chunk, kh, g, d)
     ar_q = torch.arange(q_chunk, device=q.device)
     ar_k = torch.arange(kv_chunk, device=q.device)
-    outs = []
-    for qi in range(nq):
-        q0 = q_offset + qi * q_chunk
+
+    def one_q_chunk(qc, kp, vp, q0: int):
         qpos = q0 + ar_q
         m = torch.full((b, q_chunk, kh, g), -math.inf, device=q.device)
         l = torch.zeros((b, q_chunk, kh, g), device=q.device)
@@ -255,8 +303,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 continue
             kpos = k0 + ar_k
             sl = slice(k0, k0 + kv_chunk)
-            mi, li, oi = _attn_chunk(qp[:, qi], kp[:, sl], vp[:, sl], qpos,
-                                     kpos, kpos < sk, window, causal, scale)
+            mi, li, oi = _attn_chunk(qc, kp[:, sl], vp[:, sl], qpos, kpos,
+                                     kpos < sk, window, causal, scale)
             m_new = torch.maximum(m, mi)
             m_new_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
             a = torch.exp(m - m_new_safe)
@@ -264,7 +312,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = a * l + bcoef * li
             o = a[..., None] * o + bcoef[..., None] * oi
             m = m_new
-        outs.append((o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+        return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+    outs = [checkpointed(one_q_chunk, qp[:, qi], kp, vp,
+                         q_offset + qi * q_chunk) for qi in range(nq)]
     out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, d)
     return out[:, :sq]
 
@@ -288,9 +339,45 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset: int = 0):
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v).reshape(b, sq, h, d)
 
 
+CE_CHUNK_ELEMS = 2 ** 27     # float32 elements of a backward chunk (512 MB)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """``mean(logsumexp(l) - l[target])`` over float32 logits ``l``, whose
+    backward keeps the logits in their own type (bf16: half the bytes of
+    the float32 copy autograd would keep) and writes their gradient a
+    chunk of rows at a time, with autograd's arithmetic for the plain
+    expression: ``(g / n) * exp(l - logz)``, ``- g / n`` added at the
+    target, rounded to the logits' type.  At a full-width vocabulary the
+    plain expression's backward holds several float32 copies of
+    ``[tokens, V]`` (6 GB each at 16384 x 92544) at once."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        idx = targets.long()[..., None]
+        lf = logits.float()
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, idx)[..., 0]
+        ctx.save_for_backward(logits, logz, idx)
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx = ctx.saved_tensors
+        v = logits.shape[-1]
+        gn = (g.expand(logz.shape) / logz.numel()).reshape(-1, 1)
+        rows, logz, idx = logits.reshape(-1, v), logz.reshape(-1, 1), \
+            idx.reshape(-1, 1)
+        out = torch.empty_like(rows)
+        step = max(1, CE_CHUNK_ELEMS // v)
+        for r in range(0, rows.shape[0], step):
+            sl = slice(r, r + step)
+            grad = gn[sl] * (rows[sl].float() - logz[sl]).exp()
+            out[sl] = grad.scatter_add_(-1, idx[sl], -gn[sl])
+        return out.reshape(logits.shape), None
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy.  logits [..., V], targets [...] int."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    """Mean token cross-entropy.  logits [..., V], targets [...] int; the
+    sum over V in float32 (:class:`_CrossEntropy`)."""
+    return _CrossEntropy.apply(logits, targets)

@@ -25,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
-                                       init_params, param_axes, rms_norm,
-                                       silu, softplus, weak_const)
+from repro_torch.models.layers import (P, bf16_layers, checkpointed,
+                                       cross_entropy, embed_rows,
+                                       init_params, layer_list, param_axes,
+                                       rms_norm, silu, softplus, weak_const)
 from repro_torch.models.transformer import _layer
 
 
@@ -166,16 +167,21 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, lp: dict,
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
     """The embedding rows cast to bf16, then scaled by sqrt(d_model)
     rounded to bf16, as the JAX package's weak-typed constant is."""
-    return params["embed"][tokens.long()].to(torch.bfloat16) * weak_const(
-        math.sqrt(cfg.d_model), torch.bfloat16)
+    return embed_rows(params["embed"], tokens).to(torch.bfloat16) * \
+        weak_const(math.sqrt(cfg.d_model), torch.bfloat16)
 
 
-def mamba2_logits(params: dict, cfg: ArchConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def mamba2_logits(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward; with ``remat`` (and grad on) each block is
+    rematerialised, as the JAX package's ``jax.checkpoint(body)``."""
     x = _embed(params, cfg, tokens)
-    layers = bf16_layers(params["layers"])
-    for i in range(cfg.n_layers):
-        x, _ = mamba2_block(x, _layer(layers, i), cfg)
+
+    def body(xx, lp):
+        return mamba2_block(xx, lp, cfg)[0]
+
+    for lp in layer_list(bf16_layers(params["layers"])):
+        x = checkpointed(body, x, lp, enabled=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"].to(torch.bfloat16)
 

@@ -27,9 +27,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
-                                       flash_attention, rms_norm,
-                                       rotary_embed, silu, swiglu)
+from repro_torch.models.layers import (P, bf16_layers, checkpointed,
+                                       cross_entropy, embed_rows,
+                                       flash_attention, layer_list,
+                                       rms_norm, rotary_embed, silu, swiglu)
 from repro_torch.parallel.sharding import active_mesh, shard
 
 
@@ -204,21 +205,27 @@ def _embed_prefix(x: torch.Tensor, image_embeds) -> torch.Tensor:
 
 def transformer_logits(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                        image_embeds: torch.Tensor | None = None,
-                       q_chunk: int = 1024, kv_chunk: int = 2048):
+                       q_chunk: int = 1024, kv_chunk: int = 2048,
+                       remat: bool = True):
     """Full-sequence forward.  tokens [B, S] -> (logits [B, S, V], aux).
     The embedding is scaled by sqrt(d_model) in the parameters' type, then
-    cast to bf16."""
+    cast to bf16.  With ``remat`` (and grad on) each layer body, attention
+    block, FFN or MoE and the running ``aux``, is rematerialised, as the
+    JAX package's ``jax.checkpoint(body)``: the backward keeps each layer's
+    input, not its activations.  The values do not depend on ``remat``."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+    x = embed_rows(params["embed"], tokens) * math.sqrt(cfg.d_model)
     x = _embed_prefix(x.to(torch.bfloat16), image_embeds)
     x = shard(x, "act_batch", "act_seq", "act_embed")
     positions = torch.arange(s, device=x.device).expand(b, s)
+
+    def body(xx, aux, lp):
+        xx, a = transformer_layer(xx, lp, cfg, positions, q_chunk, kv_chunk)
+        return xx, aux + a
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = bf16_layers(params["layers"])
-    for i in range(cfg.n_layers):
-        x, a = transformer_layer(x, _layer(layers, i), cfg, positions,
-                                 q_chunk, kv_chunk)
-        aux = aux + a
+    for lp in layer_list(bf16_layers(params["layers"])):
+        x, aux = checkpointed(body, x, aux, lp, enabled=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(torch.bfloat16)
     return shard(logits, "act_batch", "act_seq", "act_vocab"), aux
@@ -324,7 +331,7 @@ def transformer_decode_step(params: dict, cfg: ArchConfig, cache: dict,
     pos, slot = _decode_position(cfg, pos, cache["k"])
     slot_pos = _cache_positions(cfg, clen, pos)
     posb = pos.expand(b, 1)
-    x = params["embed"][tokens.long()] * math.sqrt(cfg.d_model)
+    x = embed_rows(params["embed"], tokens) * math.sqrt(cfg.d_model)
     x = shard(x.to(torch.bfloat16), "act_batch", "act_embed")
     layers = bf16_layers(params["layers"])
     for i in range(cfg.n_layers):
@@ -364,8 +371,8 @@ def transformer_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     window).
     """
     b, s = tokens.shape
-    x = params["embed"][tokens.long()].to(torch.bfloat16) * math.sqrt(
-        cfg.d_model)
+    x = embed_rows(params["embed"], tokens).to(torch.bfloat16) * \
+        math.sqrt(cfg.d_model)
     x = shard(_embed_prefix(x, image_embeds), "act_batch", "act_seq",
               "act_embed")
     positions = torch.arange(s, device=x.device).expand(b, s)

@@ -25,10 +25,11 @@ import math
 import torch
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
+from repro_torch.models.layers import (P, bf16_layers, checkpointed,
+                                       cross_entropy, embed_rows,
                                        flash_attention, gelu_tanh,
-                                       init_params, param_axes, rms_norm,
-                                       weak_const)
+                                       init_params, layer_list, param_axes,
+                                       rms_norm, weak_const)
 from repro_torch.models.transformer import (_cache_positions,
                                             _decode_position, _layer,
                                             decode_attention)
@@ -134,18 +135,21 @@ def _cross_attn(x, enc_out, lp, cfg, q_chunk=512, kv_chunk=512):
     return x + torch.einsum("bshk,hkd->bsd", o, lp["xwo"]), k, v
 
 
-def whisper_encode(params, cfg: ArchConfig,
-                   frames: torch.Tensor) -> torch.Tensor:
+def whisper_encode(params, cfg: ArchConfig, frames: torch.Tensor,
+                   remat: bool = True) -> torch.Tensor:
     """frames [B, S_enc, d] (stub frontend output) -> encoder states.  The
-    frames and the sinusoid are summed in float32, then cast to bf16."""
+    frames and the sinusoid are summed in float32, then cast to bf16.  With
+    ``remat`` (and grad on) each layer is rematerialised, as the JAX
+    package's ``jax.checkpoint(body)``."""
     _, s, d = frames.shape
     x = (frames.float() + _sinusoid(s, d, frames.device)[None]).to(
         torch.bfloat16)
-    layers = bf16_layers(params["encoder"])
-    for i in range(cfg.n_encoder_layers or cfg.n_layers):
-        lp = _layer(layers, i)
-        x, _, _ = _self_attn(x, lp, cfg, causal=False)
-        x = _gelu_mlp(x, lp, cfg)
+
+    def body(xx, lp):
+        return _gelu_mlp(_self_attn(xx, lp, cfg, causal=False)[0], lp, cfg)
+
+    for lp in layer_list(bf16_layers(params["encoder"])):
+        x = checkpointed(body, x, lp, enabled=remat)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -160,8 +164,8 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 def _scaled_embed(params, d: int, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows in bf16 times sqrt(d) rounded to bf16 (the JAX
     package's weak-typed constant)."""
-    return params["embed"][tokens.long()].to(torch.bfloat16) * weak_const(
-        math.sqrt(d), torch.bfloat16)
+    return embed_rows(params["embed"], tokens).to(torch.bfloat16) * \
+        weak_const(math.sqrt(d), torch.bfloat16)
 
 
 def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -171,14 +175,19 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def whisper_decoder_logits(params, cfg: ArchConfig, tokens: torch.Tensor,
-                           enc_out: torch.Tensor) -> torch.Tensor:
+                           enc_out: torch.Tensor,
+                           remat: bool = True) -> torch.Tensor:
+    """The decoder's logits over ``enc_out``; with ``remat`` (and grad on)
+    each layer is rematerialised, as in :func:`whisper_encode`."""
     x = _embed(params, cfg, tokens)
-    layers = bf16_layers(params["decoder"])
-    for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
-        x, _, _ = _self_attn(x, lp, cfg, causal=True)
-        x, _, _ = _cross_attn(x, enc_out, lp, cfg)
-        x = _gelu_mlp(x, lp, cfg)
+
+    def body(xx, lp):
+        xx = _self_attn(xx, lp, cfg, causal=True)[0]
+        xx = _cross_attn(xx, enc_out, lp, cfg)[0]
+        return _gelu_mlp(xx, lp, cfg)
+
+    for lp in layer_list(bf16_layers(params["decoder"])):
+        x = checkpointed(body, x, lp, enabled=remat)
     return _head(params, cfg, x)
 
 
@@ -260,7 +269,7 @@ def whisper_prefill(params, cfg: ArchConfig, frames: torch.Tensor,
     """Encode ``frames`` and prefill the decoder prompt.  Returns (last
     logits, cache): the self cache filled to ``len(tokens)`` and the cross
     caches over the encoder's ``S_enc`` states, each [L, B, KH, S, hd]."""
-    enc_out = whisper_encode(params, cfg, frames)
+    enc_out = whisper_encode(params, cfg, frames, remat=False)
     x = _embed(params, cfg, tokens)
     layers = bf16_layers(params["decoder"])
     kv = {"k": [], "v": [], "xk": [], "xv": []}

@@ -16,10 +16,10 @@ import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.core.pytree import tree_map
-from repro_torch.models.layers import (P, bf16_layers, cross_entropy,
-                                       flash_attention, init_params,
-                                       param_axes, rms_norm, rotary_embed,
-                                       swiglu)
+from repro_torch.models.layers import (P, bf16_layers, checkpointed,
+                                       cross_entropy, flash_attention,
+                                       init_params, layer_list, param_axes,
+                                       rms_norm, rotary_embed, swiglu)
 from repro_torch.models.mamba2 import (_embed, mamba2_block,
                                        mamba2_block_decode,
                                        mamba2_cache_spec,
@@ -91,9 +91,8 @@ def _group_params(params, cfg: ArchConfig) -> list[list[dict]]:
     """The mamba layers' weights in bf16, as ``[group][layer]`` dicts of
     views into the stacked tensors."""
     n_outer, period = _outer(cfg)
-    mamba = bf16_layers(params["mamba"])
-    return [[{k: v[g * period + j] for k, v in mamba.items()}
-             for j in range(period)] for g in range(n_outer)]
+    mamba = layer_list(bf16_layers(params["mamba"]))
+    return [mamba[g * period:(g + 1) * period] for g in range(n_outer)]
 
 
 def _shared(params) -> dict:
@@ -119,9 +118,23 @@ def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
     return x, states, ks, vs
 
 
-def zamba2_logits(params: dict, cfg: ArchConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    x, _, _, _ = _forward(params, cfg, tokens)
+def zamba2_logits(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward; with ``remat`` (and grad on) each outer group,
+    ``period`` mamba blocks and the shared block, is rematerialised, as the
+    JAX package's ``jax.checkpoint(outer_body)``."""
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    shared = _shared(params)
+
+    def outer_body(xx, group):
+        for lp in group:
+            xx = mamba2_block(xx, lp, cfg)[0]
+        return _shared_block(xx, shared, cfg, positions)[0]
+
+    for group in _group_params(params, cfg):
+        x = checkpointed(outer_body, x, group, enabled=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"].to(torch.bfloat16)
 

@@ -19,10 +19,13 @@ The body runs in two phases over the mesh's shards
 and combine, then the folds (``y`` over ``model``, the load-balance
 estimate over the batch shards).  The expert products are float32 matmuls
 of the widened operands (a product of two bf16 values is exact in
-float32), with TF32 off on the card; ``g * u`` is rounded to ``x``'s type
-before the down projection; each token's k contributions are added in the
-order of their sorted pairs (by expert), with no atomics, so a run on the
-card repeats bit for bit.
+float32), with TF32 off on the card in the forward and in the backward
+(:func:`exact_matmul`, the router's product too); ``g * u`` is rounded to
+``x``'s type before the down projection; each token's k contributions are
+added in the order of their sorted pairs (by expert), with no atomics, so
+a run on the card repeats bit for bit.  The body is differentiable: the
+gradient flows back through each shard's copies, the folds and the
+combine, so the meshed MoE trains.
 """
 
 from __future__ import annotations
@@ -34,6 +37,39 @@ import torch
 from repro_torch.device import device_guard, exact_float32
 from repro_torch.models.layers import silu
 from repro_torch.parallel.mesh import Mesh, body_runs, fold_sum, split_axes
+
+
+class _ExactMatmul(torch.autograd.Function):
+    """``torch.matmul`` of two 2-D or two 3-D tensors whose forward and
+    backward both run under :func:`~repro_torch.device.exact_float32` on
+    the operands' device."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with exact_float32(a.device):
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with exact_float32(a.device):
+            if ctx.needs_input_grad[0]:
+                ga = torch.matmul(g, b.mT)
+            if ctx.needs_input_grad[1]:
+                gb = torch.matmul(a.mT, g)
+        return ga, gb
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D or batched 3-D) rounded as float32 on the card in
+    the forward and in the backward alike, whatever the caller's TF32
+    setting: autograd runs the backward after the forward's
+    ``exact_float32`` block has closed, so the scope travels with the
+    product.  Its values are ``torch.matmul``'s; its gradients are the
+    products of ``mm``'s and ``bmm``'s own backward."""
+    return _ExactMatmul.apply(a, b)
 
 
 def combine(contrib: torch.Tensor, order: torch.Tensor,
@@ -62,11 +98,12 @@ def local_moe(xf: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     router replicated, the expert weights its slice (experts in EP mode,
     ``d_ff`` in TP mode), ``shard`` its index on the model axis.  Returns
     its float32 partial ``y`` [t, d] and its load-balance estimate.
-    Float32 products are meant to be exact (on the card, run it under
-    :func:`~repro_torch.device.exact_float32`)."""
+    The router's and the experts' products are exact float32 in the
+    forward and the backward (:func:`exact_matmul`); on the card, run the
+    rest under :func:`~repro_torch.device.exact_float32`."""
     t, d = xf.shape
     e, k = n_experts, top_k
-    logits = (xf @ router).float()
+    logits = exact_matmul(xf, router).float()
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -108,9 +145,9 @@ def local_moe(xf: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
                        device=xf.device).index_copy_(0, slot, xf[token_of])
     disp = disp[:n_disp * cap].reshape(n_disp, cap, d).float()
 
-    g = silu(torch.bmm(disp, wg.float()))
-    u = torch.bmm(disp, wu.float())
-    out = torch.bmm((g * u).to(xf.dtype).float(), wd.float())
+    g = silu(exact_matmul(disp, wg.float()))
+    u = exact_matmul(disp, wu.float())
+    out = exact_matmul((g * u).to(xf.dtype).float(), wd.float())
     out = out.reshape(n_disp * cap, d)
 
     contrib = out[torch.where(keep, slot, 0)] * (

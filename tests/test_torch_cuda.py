@@ -1117,3 +1117,151 @@ def test_cuda_pipeline_matches_cpu_and_sequential(card):
     assert torch.equal(got, sequential_reference(layer_fn, params,
                                                  xs.to(card)))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------- LM training
+
+# card against CPU, an InternLM2-1.8B step at full width cut to 2 layers
+# (bf16 activations: cuBLAS and the CPU sum in other orders): the loss
+# within 0.01, the whole gradient within 0.02 of its norm, each leaf within
+# 0.05 of its norm
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_LEAF_RTOL = 0.01, 0.02, 0.05
+
+
+def _train_cut(device, layers=2, seq=512, batch=2):
+    """InternLM2-1.8B at full width cut to ``layers`` layers, float32
+    parameters seeded on the CPU and copied to ``device``, and a token
+    pipeline batch of ``batch`` x ``seq`` on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch.train import batch_fn_for
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), n_layers=layers)
+    bundle = build_model(cfg)
+    cpu = bundle.init(seed=0, device="cpu")
+    return (bundle, cpu, tree_map(lambda t: t.to(device), cpu),
+            batch_fn_for(cfg, seq, batch, "cpu")(0))
+
+
+def test_cuda_lm_train_step_matches_cpu(card):
+    """One train step of InternLM2-1.8B at full width cut to 2 layers, seq
+    512: the loss and the gradient on the card against the CPU's, at the
+    bf16 bounds above; the step's new state finite."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.engine.train_loop import (_value_and_grad,
+                                               init_train_state,
+                                               make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    bundle, cpu, dev, batch = _train_cut(card)
+    want_loss, want = _value_and_grad(bundle.loss, cpu, batch)
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    loss, grads = _value_and_grad(bundle.loss, dev, on_card)
+    assert abs(loss.item() - want_loss.item()) <= TRAIN_LOSS_ATOL
+    got = [g.cpu() for g in tree_leaves(grads)]
+    ref = tree_leaves(want)
+    for g, w in zip(got, ref):
+        assert (g - w).norm() <= TRAIN_LEAF_RTOL * w.norm()
+    g, w = (torch.cat([x.reshape(-1) for x in t]) for t in (got, ref))
+    assert (g - w).norm() <= TRAIN_GRAD_RTOL * w.norm()
+    opt = AdamWConfig()
+    new, metrics = make_train_step(bundle.loss, opt)(
+        init_train_state(None, dev, opt).as_tree(), on_card)
+    assert torch.equal(metrics["loss"], loss)
+    assert all(torch.isfinite(t).all() for t in tree_leaves(new))
+
+
+def test_cuda_lm_train_step_is_sync_free(card):
+    """The same step (loss, gradient with remat, AdamW) reads nothing back
+    from the card: it runs under ``set_sync_debug_mode("error")``; the
+    loop's one read of the metrics comes after it."""
+    from repro_torch.engine.train_loop import (init_train_state,
+                                               make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    bundle, _, dev, batch = _train_cut(card)
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    opt = AdamWConfig()
+    step = make_train_step(bundle.loss, opt)
+    state = init_train_state(None, dev, opt).as_tree()
+    state, _ = step(state, on_card)            # warm: allocations, handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(metrics["loss"]).all()
+
+
+def _moe_grads(device, cfg, x, lp, w, shape):
+    """The gradients of ``sum(moe_ffn_sharded(x) * w) + aux`` with respect
+    to ``x`` and each weight, on a spoofed mesh of ``shape`` on
+    ``device``."""
+    from repro_torch.parallel.moe import moe_ffn_sharded
+    xs = x.to(device).requires_grad_(True)
+    ws = {k: v.to(device).requires_grad_(True) for k, v in lp.items()}
+    y, aux = moe_ffn_sharded(xs, ws, cfg,
+                             _spoofed(shape, ("data", "model"), device))
+    val = (y * w.to(device)).sum() + aux
+    names = sorted(ws)
+    return [g.cpu() for g in torch.autograd.grad(
+        val, [xs] + [ws[k] for k in names])]
+
+
+def _moe_case(arch, seed=0):
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(seed)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    lp = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
+          for k, s in (("router", (d, e)), ("we_gate", (e, d, f)),
+                       ("we_up", (e, d, f)), ("we_down", (e, f, d)))}
+    x, w = (torch.from_numpy(rng.normal(size=(4, 64, d)).astype(np.float32))
+            for _ in range(2))
+    return cfg, x, lp, w
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3_moe_235b_a22b", (2, 4)),
+                                        ("mixtral_8x7b", (1, 2))])
+def test_cuda_meshed_moe_gradient_matches_cpu(card, arch, shape):
+    """The meshed MoE's gradient (x and every weight) in float32 on a
+    spoofed ``cuda:0`` mesh, EP and TP mode: repeats bit for bit, and
+    equals the same mesh on the CPU within the summation order (rtol 1e-5,
+    1e-5 of each gradient's scale)."""
+    cfg, x, lp, w = _moe_case(arch)
+    want = _moe_grads("cpu", cfg, x, lp, w, shape)
+    got = _moe_grads(card, cfg, x, lp, w, shape)
+    again = _moe_grads(card, cfg, x, lp, w, shape)
+    for g, a, ref in zip(got, again, want):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_cuda_meshed_moe_backward_runs_without_tf32(card, monkeypatch):
+    """The meshed MoE's backward multiplies in float32 whatever the
+    caller's TF32 setting: with TF32 forced on for the whole process its
+    gradients equal those of a run with TF32 off, bit for bit.  The check
+    can fail: with the router's and the experts' products' backward left
+    to autograd (``exact_matmul`` replaced by ``torch.matmul``, the
+    forward still inside its ``exact_float32`` block), TF32 on moves the
+    gradients."""
+    from repro_torch.parallel import moe as MOE
+    cfg, x, lp, w = _moe_case("mixtral_8x7b", seed=1)
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+
+    def grads(tf32: bool):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return _moe_grads(card, cfg, x, lp, w, (1, 2))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
+
+    exact = grads(False)
+    assert all(torch.equal(a, b) for a, b in zip(grads(True), exact))
+    monkeypatch.setattr(MOE, "exact_matmul", torch.matmul)
+    assert all(torch.equal(a, b) for a, b in zip(grads(False), exact))
+    assert not all(torch.equal(a, b) for a, b in zip(grads(True), exact))

@@ -47,6 +47,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.zamba2",
                  "repro_torch.models.whisper",
                  "repro_torch.launch.serve",
+                 "repro_torch.launch.train",
                  "repro_torch.launch.mesh",
                  "repro_torch.parallel",
                  "repro_torch.parallel.mesh",
