@@ -180,6 +180,18 @@ Phases, one line each:
                step on a spoofed (4, 2) mesh equal to the step on the card
                alone; and one Mixtral smoke step on (1, 2) (the meshed
                MoE), card against CPU
+ 15. dryrun    the dry-run tools (launch.dryrun, launch.hlo_flops), which
+               launch no hand-written kernel either (counted from 0 over
+               the phase).  ``dryrun:`` InternLM2-1.8B at full width cut
+               to 2 layers: a training step, a prefill of 2 x 1024 tokens
+               and one decode step, each counted on meta tensors and again
+               on the card under the same counter, every count equal (the
+               dry-run measures what the card runs).  ``dryrun_lm_train:``
+               the ``lm_train:`` cell counted on meta at full depth beside
+               phase 14's measured step and peak: counted FLOPs, model
+               FLOPs (6 N D) and their share, the roofline terms on the
+               H100's data-sheet rates, the counted peak (arguments plus
+               live temporaries) against max_memory_allocated
 
 then each phase's seconds (``timing:``), the card's name and power limit, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -203,15 +215,23 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100's data-sheet rates (dense, 700 W), kept with the dry-run's
+    # roofline terms
+    from repro_torch.launch.hlo_analysis import (BF16_FLOP_PER_S,
+                                                 F32_FLOP_PER_S,
+                                                 HBM_BYTES_PER_S,
+                                                 TF32_FLOP_PER_S)
+except ImportError:
+    sys.exit(f"chip_smoke: {ROOT} is not a checkout of the repository "
+             f"(src/repro_torch is missing)")
 SEED = 0
 N_REQUESTS = 8
 N_STREAM = 32                # requests of the stream phase's arrival trace
 LENGTHS = (8, 25)            # request lengths are drawn from this range
 GAINS = (1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)
 MIN_RATE = 0.02              # least spike rate the gain must give each layer
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores, same sheet
-TF32_FLOP_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
 REPS = 200                   # launches a device or issue time is taken over
 PRECISION_BUDGET = 0.05      # the reference precision bench's budget
 SPIKIFY_WIDTHS = (2048, 8192)  # InternLM2-1.8B d_model, d_ff
@@ -1926,7 +1946,6 @@ LM_CPU_LAYERS, LM_CPU_TOKENS = 2, 16
 LM_SWA_ARCH = "h2o_danube_1_8b"
 LM_SWA_PROMPT, LM_SWA_STEPS = 4160, 16      # past its 4096-token window
 LM_ATOL, LM_RTOL = 0.15, 0.05   # bf16 logits: the reference's own tolerance
-BF16_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense, same sheet
 
 
 def lm_close(got: torch.Tensor, want: torch.Tensor, what: str,
@@ -3351,6 +3370,115 @@ def phase_lm_train(dev, card: str) -> tuple[list, dict]:
     return lines, counts
 
 
+DRYRUN_LAYERS = 2            # phase 15 (a): InternLM2-1.8B cut to 2 layers
+DRYRUN_BATCH, DRYRUN_SEQ = 2, 1024
+
+
+def dryrun_meta_vs_card(dev) -> dict:
+    """Phase 15 (a): InternLM2-1.8B at full width cut to DRYRUN_LAYERS
+    layers; a training step (float32 parameters, AdamW), a prefill of
+    DRYRUN_BATCH x DRYRUN_SEQ tokens and one decode step against a cache
+    of DRYRUN_SEQ slots (bf16), each counted by the dry-run
+    (``launch.dryrun.lower_cell`` at full depth on a 1 x 1 mesh) on meta
+    tensors and again on the card (seeded weights) under the same
+    counter.  Every count equal: FLOPs, dot FLOPs, bytes, argument and
+    peak live bytes, outputs, donated bytes, collectives."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=DRYRUN_LAYERS)
+    out = dict(layers=DRYRUN_LAYERS, batch=DRYRUN_BATCH, seq=DRYRUN_SEQ)
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeSpec(f"{kind}_{DRYRUN_SEQ}", DRYRUN_SEQ, DRYRUN_BATCH,
+                          kind)
+        got = {}
+        for d in ("meta", dev):
+            mesh = make_mesh((1, 1), ("data", "model"), device=d)
+            traced, meta = D.lower_cell(LM_ARCH, shape, mesh, device=d,
+                                        full_depth=True, cfg=cfg)
+            got[torch.device(d).type] = traced.tally, meta["compile_s"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        (m, m_s), (c, c_s) = got["meta"], got[torch.device(dev).type]
+        diff = {k: (m[k], c[k]) for k in m if m[k] != c[k]}
+        require(not diff, f"dry-run {kind}: meta and card differ: {diff}")
+        out.update({f"{kind}_flops": m["flops"],
+                    f"{kind}_dot_flops": m["dot_flops"],
+                    f"{kind}_bytes": m["bytes"],
+                    f"{kind}_argument_bytes": m["argument_bytes"],
+                    f"{kind}_temp_bytes": m["temp_bytes"],
+                    f"{kind}_meta_s": round(m_s, 3),
+                    f"{kind}_card_s": round(c_s, 3)})
+    out["meta_equals_card"] = True
+    return out
+
+
+def dryrun_lm_train(card: str, measured: dict) -> dict:
+    """Phase 15 (b): the ``lm_train:`` cell (InternLM2-1.8B, full width
+    and depth, LM_TRAIN_BATCH x LM_TRAIN_SEQ) counted on meta tensors at
+    full depth, beside what phase 14 measured on the card in this
+    process (``measured``, its line): the counted FLOPs, the model FLOPs
+    (6 N D) and their share of the count, the roofline terms on the
+    H100's data-sheet rates against the measured step, and the counted
+    peak (arguments plus live temporaries) against
+    ``max_memory_allocated``."""
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    shape = ShapeSpec("train_4k", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    mesh = make_mesh((1, 1), ("data", "model"), device="meta")
+    traced, meta = D.lower_cell(LM_ARCH, shape, mesh, device="meta",
+                                full_depth=True)
+    rec = D.analyze(traced, meta, 1)
+    r, mem, t = rec["roofline"], rec["memory"], traced.tally
+    require(t["dot_flops"] >= rec["model_flops"] > 0
+            and all(math.isfinite(r[k]) and r[k] > 0
+                    for k in ("compute_s", "memory_s")),
+            f"dry-run lm_train cell: {rec['loop_aware']}, {r}")
+    counted_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    step_ms = measured["step_ms"]
+    return dict(card=json.dumps(card), arch=LM_ARCH, batch=LM_TRAIN_BATCH,
+                seq=LM_TRAIN_SEQ, trace_s=round(meta["compile_s"], 2),
+                flops=t["flops"], dot_flops=t["dot_flops"], bytes=t["bytes"],
+                raw_flops=t["raw_flops"], model_flops=rec["model_flops"],
+                useful_ratio=round(rec["useful_ratio"], 5),
+                hand_model_flops=measured["model_flops"],
+                compute_ms=round(r["compute_s"] * 1e3, 3),
+                memory_ms=round(r["memory_s"] * 1e3, 3),
+                dominant=r["dominant"],
+                bound_ms=round(r["step_time_s"] * 1e3, 3),
+                measured_step_ms=step_ms,
+                measured_over_bound=round(step_ms / (r["step_time_s"] * 1e3),
+                                          3),
+                counted_tflop_per_s=round(t["flops"] / step_ms / 1e9, 3),
+                argument_mib=round(mem["argument_size_in_bytes"] / 2 ** 20,
+                                   1),
+                temp_mib=round(mem["temp_size_in_bytes"] / 2 ** 20, 1),
+                counted_peak_mib=round(counted_peak / 2 ** 20, 1),
+                measured_peak_mib=measured["peak_mib"],
+                measured_over_counted_peak=round(
+                    measured["peak_mib"] * 2 ** 20 / counted_peak, 4))
+
+
+def phase_dryrun(dev, card: str, measured: dict) -> tuple[list, dict]:
+    """Phase 15: the dry-run tools, which launch no hand-written kernel
+    (the counts are set to 0 before the phase and read after it)."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    lines = [("dryrun", dict(card=json.dumps(card),
+                             **dryrun_meta_vs_card(dev))),
+             ("dryrun_lm_train", dryrun_lm_train(card, measured))]
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    require(sum(counts.values()) == 0, f"the dry-run launched {counts}")
+    for _, fields in lines:
+        fields["kernel_launches"] = 0
+    return lines, counts
+
+
 def device_ms_by_name(prof) -> dict:
     """Device time in ms of a profiler trace, summed by kernel name (the
     template arguments dropped) and by copy kind."""
@@ -3449,7 +3577,6 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               f"(src/repro_torch is missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.menage_paper import (ACCEL_1, ACCEL_2,
                                                   CIFAR_DATA, CIFAR_SNN,
                                                   NMNIST_DATA, NMNIST_SNN)
@@ -3651,12 +3778,21 @@ def main() -> int:
     for row in kernels:
         row["lm_train_launches"] = counts_lm[row["name"]]
     phase_s["lm_train"] = lap()
+
+    # 15. dryrun: the counted step, on meta against the card, and the
+    # full-depth lm_train: cell beside its measured step
+    dr_lines, counts_dr = phase_dryrun(dev, card, dict(lm_lines)["lm_train"])
+    for name, fields in dr_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["dryrun_launches"] = counts_dr[row["name"]]
+    phase_s["dryrun"] = lap()
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
             "train_launches", "mesh_launches", "lm_launches",
             "lm_models_launches", "lm_mesh_launches", "lm_train_launches",
-            "max_abs_err", "ms", "plain_ms",
+            "dryrun_launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "on_path")
     print(card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

@@ -10,13 +10,15 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a :class:`torch.device`.  A CUDA device with no card
     present raises: the port never falls back to the CPU on its own, the
-    caller asks for it with ``device="cpu"``."""
+    caller asks for it with ``device="cpu"``.  ``"meta"`` (shapes and
+    dtypes, no storage: what the dry-run traces on) is taken only when the
+    caller names it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -9,6 +9,7 @@ concrete implementation.  What the launcher and the tests need:
   bundle.prefill(params, batch)        -> (logits, cache)
   bundle.decode(params, cache, batch)  -> (logits, cache)
   bundle.cache_spec(batch, len)        -> (meta tensors, axes)
+  bundle.input_specs(shape)            -> ({name: meta tensor}, axes)
 
 Every family of the registry builds: the transformer (``dense``,
 ``moe``, ``vlm``), Mamba2 (``ssm``), Zamba2 (``hybrid``) and Whisper
@@ -22,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.common import ArchConfig
+from repro_torch.configs.common import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -56,6 +57,39 @@ class ModelBundle:
 
     def abstract_params(self, dtype=torch.float32):
         return L.abstract_params(self.specs, dtype)
+
+    def input_specs(self, shape: ShapeSpec) -> tuple[dict, dict]:
+        """Meta tensors standing in for every model input of a shape cell
+        (int32 tokens, float32 frames and image embeddings), and their
+        logical sharding axes; no storage.  Training takes ``seq + 1``
+        tokens (inputs and shifted targets); the encoder-decoder family
+        ``seq`` frames and ``seq // decoder_ratio`` (+ 1) tokens; a VLM
+        backbone its ``image_embeds`` prefix; decode one token a sequence
+        and the position, a 0-d tensor."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def tok(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return ({"tokens": tok((b,), torch.int32),
+                     "pos": tok((), torch.int32)},
+                    {"tokens": ("act_batch",), "pos": ()})
+        extra = 1 if shape.kind == "train" else 0
+        if cfg.family == "encdec":
+            sd = s // cfg.decoder_ratio
+            return ({"frames": tok((b, s, cfg.d_model), torch.float32),
+                     "tokens": tok((b, sd + extra), torch.int32)},
+                    {"frames": ("act_batch", "act_seq", "act_embed"),
+                     "tokens": ("act_batch", "act_seq")})
+        out = {"tokens": tok((b, s + extra), torch.int32)}
+        axes = {"tokens": ("act_batch", "act_seq")}
+        if cfg.n_image_embeds:
+            out["image_embeds"] = tok((b, cfg.n_image_embeds, cfg.d_model),
+                                      torch.float32)
+            axes["image_embeds"] = ("act_batch", "act_seq", "act_embed")
+        return out, axes
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:

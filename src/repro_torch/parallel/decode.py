@@ -26,7 +26,7 @@ import torch
 from repro_torch.device import device_guard
 from repro_torch.models.layers import weak_const
 from repro_torch.parallel.mesh import (Mesh, body_runs, fold_max, fold_sum,
-                                      split_axes)
+                                      report, shard_copy, split_axes)
 
 
 def _sp_scores(q, ck, slot_pos, pos, window):
@@ -84,10 +84,12 @@ def make_sp_attention(mesh: Mesh, axis: str = "model",
         for shard, dev in enumerate(mesh.devices):
             bs, cs = local(shard)
             with device_guard(dev):
-                st[shard] = _sp_scores(q[bs].to(dev), ck[bs, :, cs].to(dev),
-                                       slot_pos[cs].to(dev), pos.to(dev)
-                                       if torch.is_tensor(pos) else pos,
-                                       window)
+                st[shard] = _sp_scores(
+                    shard_copy(q[bs], dev, 0, shard),
+                    shard_copy(ck[bs, :, cs], dev, 0, shard),
+                    shard_copy(slot_pos[cs], dev, 0, shard),
+                    shard_copy(pos, dev, 0, shard)
+                    if torch.is_tensor(pos) else pos, window)
             body_runs["sp_attention"] += 1
         groups = mesh.groups(axis)
         m = {}
@@ -100,8 +102,9 @@ def make_sp_attention(mesh: Mesh, axis: str = "model",
             bs, cs = local(shard)
             s, _, valid = st[shard]
             with device_guard(dev):
-                part[shard] = _sp_partials(s, m[shard], valid,
-                                           cv[bs, :, cs].to(dev), q.dtype)
+                part[shard] = _sp_partials(
+                    s, m[shard], valid,
+                    shard_copy(cv[bs, :, cs], dev, 0, shard), q.dtype)
         outs = {}
         for group in groups:
             bi = mesh.axis_index(group[0], b_axes)
@@ -112,8 +115,9 @@ def make_sp_attention(mesh: Mesh, axis: str = "model",
                 l = fold_sum([part[i][0] for i in group], devs)[0]
                 o = fold_sum([part[i][1] for i in group], devs)[0]
                 out = o / torch.clamp(l, min=1e-30)[..., None]
-            outs[bi] = out.reshape(bsz, *q.shape[1:]).to(q.dtype)
-        return torch.cat([outs[i].to(q.device) for i in range(n_b)])
+            outs[bi] = group[0], out.reshape(bsz, *q.shape[1:]).to(q.dtype)
+        return torch.cat([shard_copy(outs[i][1], q.device, outs[i][0], 0)
+                          for i in range(n_b)])
 
     return attn
 
@@ -138,17 +142,22 @@ def sp_cache_update(ck, cv, k_new, v_new, slot, mesh: Mesh,
         bs = slice(bi * bsz, (bi + 1) * bsz)
         cs = slice(j * c_loc, (j + 1) * c_loc)
         with device_guard(dev):
-            local = (slot.to(dev) if torch.is_tensor(slot) else torch.full(
-                (), slot, dtype=torch.int64, device=dev)) - j * c_loc
+            local = (shard_copy(slot, dev, 0, shard) if torch.is_tensor(slot)
+                     else torch.full((), slot, dtype=torch.int64,
+                                     device=dev)) - j * c_loc
             in_range = (local >= 0) & (local < c_loc)
             safe = torch.clamp(local, 0, c_loc - 1).reshape(1)
             for cache, new in ((ck, k_new), (cv, v_new)):
                 home = cache[bs, :, cs]
-                blk = home.to(dev)
+                blk = shard_copy(home, dev, 0, shard)
                 cur = blk.index_select(2, safe)[:, :, 0]
-                upd = torch.where(in_range, new[bs].to(dev, blk.dtype), cur)
+                upd = torch.where(in_range,
+                                  shard_copy(new[bs], dev, 0, shard,
+                                             blk.dtype), cur)
                 blk.index_copy_(2, safe, upd[:, :, None])
                 if blk is not home:
                     home.copy_(blk)
+                if shard:
+                    report("p2p", home.numel() * home.element_size(), 1)
         body_runs["sp_cache_update"] += 1
     return ck, cv

@@ -19,7 +19,10 @@ group (the shards that differ only along one axis, in axis order):
   * :func:`fold_max`, pmax, in the same order and placement;
   * :func:`send`, ppermute.
 
-None of them reads a value back to the host.  ``body_runs`` counts how
+None of them reads a value back to the host.  Each tells an active cost
+counter (:mod:`repro_torch.launch.hlo_flops`) of itself through
+:func:`report`, as do the meshed pieces' point-to-point slice copies,
+which all go through :func:`shard_copy`.  ``body_runs`` counts how
 many times each kind of shard body ran (a probe, reset by
 :func:`reset_body_runs`), so a caller can see that a meshed path really
 went through every shard.
@@ -32,6 +35,8 @@ import dataclasses
 import math
 
 import torch
+
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.device import canonical_device, device_guard, resolve_device
 
@@ -143,9 +148,39 @@ def mesh_devices(n: int | None = None, *, device="cuda",
     return tuple(avail[:n])
 
 
+def report(kind: str, nbytes: int, n_devices: int) -> None:
+    """Tell every active cost counter of one collective (``kind`` one of
+    ``hlo_flops.KINDS``) whose result of ``nbytes`` lands on each of
+    ``n_devices`` devices.  The counters are found on the dispatch-mode
+    stack, which autograd carries to its own thread, so a rematerialised
+    forward run by the backward reports too; with none active, nothing
+    happens."""
+    for mode in _get_current_dispatch_mode_stack():
+        note = getattr(mode, "record_collective", None)
+        if note is not None:
+            note(kind, nbytes, n_devices)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def shard_copy(t: torch.Tensor, device, src: int, dst: int,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t.to(device, dtype)``: shard ``src``'s tensor as shard ``dst``
+    receives it.  Reported (:func:`report`) as one ``p2p`` copy of ``t``'s
+    bytes when the shards differ, whether or not their devices do: on a
+    spoofed mesh the copy moves nothing, but the mesh it stands for would
+    move the slice."""
+    if src != dst:
+        report("p2p", _nbytes(t), 1)
+    return t.to(device) if dtype is None else t.to(device, dtype)
+
+
 def fold_sum(parts: list[torch.Tensor], devices) -> list[torch.Tensor]:
     """psum over one group: ``parts[s]`` is shard s's tensor; the float32
     sum in shard order on ``devices[0]``, placed on each of ``devices``."""
+    report("all-reduce", parts[0].numel() * 4, len(parts))
     dev0 = devices[0]
     with device_guard(dev0):
         acc = parts[0].to(dev0, torch.float32)
@@ -156,6 +191,7 @@ def fold_sum(parts: list[torch.Tensor], devices) -> list[torch.Tensor]:
 
 def fold_max(parts: list[torch.Tensor], devices) -> list[torch.Tensor]:
     """pmax over one group, in :func:`fold_sum`'s order and placement."""
+    report("all-reduce", _nbytes(parts[0]), len(parts))
     dev0 = devices[0]
     with device_guard(dev0):
         acc = parts[0].to(dev0)
@@ -168,6 +204,7 @@ def send(parts: list[torch.Tensor], devices, perm) -> list[torch.Tensor]:
     """ppermute over one group: ``perm`` holds ``(src, dst)`` pairs of
     group positions; shard ``dst`` receives ``parts[src]`` on its device,
     and a shard that receives nothing gets zeros, as in JAX."""
+    report("collective-permute", _nbytes(parts[0]), len(parts))
     out = [None] * len(parts)
     for src, dst in perm:
         out[dst] = parts[src].to(devices[dst])

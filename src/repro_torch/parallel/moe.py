@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.device import device_guard, exact_float32
 from repro_torch.models.layers import silu
-from repro_torch.parallel.mesh import Mesh, body_runs, fold_sum, split_axes
+from repro_torch.parallel.mesh import (Mesh, body_runs, fold_sum, shard_copy,
+                                      split_axes)
 
 
 class _ExactMatmul(torch.autograd.Function):
@@ -175,7 +176,7 @@ def moe_ffn_sharded(x: torch.Tensor, lp: dict, cfg, mesh: Mesh,
                          f"{n_model}-way {model_axis!r} axis")
     w = {n: lp[n] for n in ("we_gate", "we_up", "we_down")}
 
-    def weights(m: int, dev) -> list[torch.Tensor]:
+    def weights(m: int, shard: int, dev) -> list[torch.Tensor]:
         """Shard m's slices of the expert weights, on its device."""
         if ep_mode:
             n = e // n_model
@@ -185,7 +186,7 @@ def moe_ffn_sharded(x: torch.Tensor, lp: dict, cfg, mesh: Mesh,
             cut = slice(m * n, (m + 1) * n)
             sl = [w["we_gate"][:, :, cut], w["we_up"][:, :, cut],
                   w["we_down"][:, cut]]
-        return [t.to(dev) for t in sl]
+        return [shard_copy(t, dev, 0, shard) for t in sl]
 
     # phase 1: every shard's local MoE
     parts, auxes = {}, {}
@@ -193,10 +194,11 @@ def moe_ffn_sharded(x: torch.Tensor, lp: dict, cfg, mesh: Mesh,
         bi = mesh.axis_index(shard, b_axes)
         m = mesh.axis_index(shard, model_axis)
         with device_guard(dev), exact_float32(dev):
-            x3 = x[bi * bsz:(bi + 1) * bsz].to(dev)
+            x3 = shard_copy(x[bi * bsz:(bi + 1) * bsz], dev, 0, shard)
             parts[shard], auxes[shard] = local_moe(
-                x3.reshape(bsz * s, d), lp["router"].to(dev),
-                *weights(m, dev), n_experts=e, top_k=cfg.top_k,
+                x3.reshape(bsz * s, d), shard_copy(lp["router"], dev, 0,
+                                                   shard),
+                *weights(m, shard, dev), n_experts=e, top_k=cfg.top_k,
                 capacity_factor=capacity_factor, ep_mode=ep_mode, shard=m)
         body_runs["moe"] += 1
 
@@ -207,8 +209,9 @@ def moe_ffn_sharded(x: torch.Tensor, lp: dict, cfg, mesh: Mesh,
         devs = [mesh.devices[i] for i in group]
         bi = mesh.axis_index(group[0], b_axes)
         if bi not in ys:
-            ys[bi] = fold_sum([parts[i] for i in group], devs)[0]
-    y = torch.cat([ys[i].to(dev0).to(x.dtype) for i in range(n_b)])
+            ys[bi] = group[0], fold_sum([parts[i] for i in group], devs)[0]
+    y = torch.cat([shard_copy(ys[i][1], dev0, ys[i][0], 0).to(x.dtype)
+                   for i in range(n_b)])
     aux = auxes[0]
     if b_axes:
         group = mesh.groups(b_axes)[0]

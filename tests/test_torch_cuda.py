@@ -1265,3 +1265,27 @@ def test_cuda_meshed_moe_backward_runs_without_tf32(card, monkeypatch):
     monkeypatch.setattr(MOE, "exact_matmul", torch.matmul)
     assert all(torch.equal(a, b) for a, b in zip(grads(False), exact))
     assert not all(torch.equal(a, b) for a, b in zip(grads(True), exact))
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("internlm2_1_8b", (4, 2)),
+                                             ("mixtral_8x7b", (1, 2))])
+def test_cuda_dryrun_counts_equal_meta(card, arch, mesh_shape):
+    """The dry-run's count of a smoke training step (64 x 8 tokens) on a
+    spoofed mesh is the same on the card as on meta tensors: FLOPs,
+    bytes, collectives, argument, output, donated and peak live bytes
+    (the Mixtral step runs the meshed MoE on a (1, 2) mesh)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_smoke_config(arch)
+    shape = ShapeSpec("train_4k", 64, 8, "train")
+    n = mesh_shape[0] * mesh_shape[1]
+    tallies = {}
+    for dev in ("meta", card):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device=dev, spoof=n)
+        traced, _ = D.lower_cell(arch, shape, mesh, device=dev, cfg=cfg,
+                                 full_depth=True)
+        tallies[torch.device(dev).type] = traced.tally
+    assert tallies["cuda"] == tallies["meta"]
+    assert tallies["cuda"]["dot_flops"] > 0

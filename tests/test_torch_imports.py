@@ -48,6 +48,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.whisper",
                  "repro_torch.launch.serve",
                  "repro_torch.launch.train",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hlo_analysis",
+                 "repro_torch.launch.hlo_flops",
                  "repro_torch.launch.mesh",
                  "repro_torch.parallel",
                  "repro_torch.parallel.mesh",
