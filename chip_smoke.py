@@ -21,6 +21,12 @@ Phases, one line each:
                refused
      sync_free one engine forward of each route under
                torch.cuda.set_sync_debug_mode("error")
+     sweep     the oracle-equivalence sweep of the JAX package's suite
+               (tests/_torch_sweep.py: 64 seeded cases of dense multi-round,
+               conv stride/pad/pool, compressed, MEM_E-capped down to depth
+               0 and mixed 2/4/8-bit stacks) on both CUDA routes, 128 runs,
+               each bit-exact against the port's CPU path and its numpy
+               oracle; seconds and each kernel's launches
   3. serve     the paper's CIFAR10-DVS MLP at the sensor's native width
                (32768 -> 1000 -> 500 -> 200 -> 100 -> 10, seeded random
                weights, 50 % magnitude-pruned, 8-bit, Accel_2) through
@@ -78,6 +84,11 @@ Phases, one line each:
                against the oracle; one train step of each family under
                set_sync_debug_mode("error"); the launch counts of the
                serving ends
+     examples  the three SNN example twins on the card as a user runs
+               them (examples/torch_quickstart.py and torch_spikify_ffn.py
+               at their defaults, torch_train_snn.py --steps 20), their own
+               assertions held; the quickstart's batched-engine ms, the
+               FFN's errors and event fractions, each example's seconds
  10. mesh      the data-parallel mesh, 2-way: cuda:0 and cuda:1 where the
                host has two cards, else two spoofed shards of the one
                (``mesh:`` line).  ``mesh_serve:`` the native-width
@@ -1678,6 +1689,119 @@ def phase_train(dev, card: str) -> tuple[list, dict]:
                                 seconds=round(time.perf_counter() - t_start,
                                               2))))
     return lines, counts
+
+
+SWEEP_ROUTES = (False, True)  # packed_ops of the sweep's two CUDA routes
+
+
+def phase_sweep(dev, card: str) -> dict:
+    """The oracle-equivalence sweep of the JAX package's suite
+    (``tests/_torch_sweep.py``, 64 cases: dense multi-round stacks, conv
+    COO tiles with stride, padding and pooling, compressed dictionaries,
+    MEM_E caps down to depth 0, mixed 2/4/8-bit stacks) on the card on
+    both routes: each ``run_batched(pack(device="cuda", packed_ops=...))``
+    equal bit for bit to the port's CPU path of the same case and to the
+    port's numpy oracle ``run_batch`` (spikes, every dispatch counter,
+    utilisation, overflow, energy).  The launch counts are set to 0 before
+    the phase and read after it."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_sweep import (batched_diffs, build_case, map_case,
+                              oracle_diffs, sweep_cases)
+    from repro_torch.core.accelerator import run_batch
+    from repro_torch.engine import run_batched
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cases = sweep_cases()
+    runs, failed = 0, []
+    for i, case in enumerate(cases):
+        layers, spikes = build_case(case)
+        model = map_case(case, layers)
+        cap = case["max_events"]
+        oracle = run_batch(model, spikes, max_events=cap)
+        for packed_ops in SWEEP_ROUTES:
+            got = run_batched(model.pack(device=dev, packed_ops=packed_ops),
+                              spikes, max_events=cap)
+            cpu = run_batched(model.pack(device="cpu",
+                                         packed_ops=packed_ops),
+                              spikes, max_events=cap)
+            runs += 1
+            diffs = batched_diffs(got, cpu) + oracle_diffs(got, oracle)
+            if diffs:
+                failed.append((i, packed_ops, diffs[:3]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    by_bits = dict(_build.packed_launches_by_bits)
+    require(not failed, f"sweep cases differ on the card: {failed}")
+    require(runs == len(SWEEP_ROUTES) * len(cases) == 128,
+            f"sweep ran {runs} of 128")
+    require(all(counts[k] > 0 for k in ("event_synapse",
+                                        "event_synapse_packed",
+                                        "lif_update")),
+            f"sweep launches {counts}")
+    require(all(by_bits[b] > 0 for b in (2, 4, 8)),
+            f"sweep packed launches by width {by_bits}")
+    return dict(cases=len(cases), routes=len(SWEEP_ROUTES), runs=runs,
+                mismatches=len(failed), seconds=round(seconds, 2),
+                launches=json.dumps(counts),
+                packed_by_bits=json.dumps(by_bits), card=json.dumps(card))
+
+
+EXAMPLES = (("torch_quickstart", []), ("torch_spikify_ffn", []),
+            ("torch_train_snn", ["--steps", "20"]))
+
+
+def phase_examples(card: str) -> dict:
+    """The three SNN example twins (``examples/torch_*.py``) on the card,
+    through their ``main`` as a user runs them (quickstart and the
+    spikified FFN at their defaults, train_snn's N-MNIST MLP 20 steps):
+    their own assertions hold (the twin bit-exact against the dense
+    reference, the batched engine against the twin on every sample, the
+    bucketed requests against the oracle, the FFN's error falling with T),
+    and each prints its last line.  The launch counts are set to 0 before
+    the phase and read after it."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out, took = {}, {}
+    for name, argv in EXAMPLES:
+        main = runpy.run_path(str(ROOT / "examples" / f"{name}.py"))["main"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        took[name] = round(time.perf_counter() - t0, 2)
+        out[name] = buf.getvalue().strip().splitlines()
+    counts = dict(_build.launches)
+    qs, spk, tr = (out[n] for n, _ in EXAMPLES)
+    require(qs[-1].startswith("served 12 requests") and
+            qs[-1].endswith("all bit-exact"), f"quickstart: {qs[-1]}")
+    batched = next(l for l in qs if l.startswith("batched engine on cuda"))
+    errs = [float(re.search(r"rel err\s+([0-9.]+)", l).group(1))
+            for l in spk if l.startswith("T=")]
+    require(len(errs) == 3 and errs[0] > errs[1] > errs[2],
+            f"spikify errors {errs}")
+    require(tr[-1].startswith("Accel_1 execution:"), f"train_snn: {tr[-1]}")
+    loss = next(l for l in tr if l.startswith("mlp train:"))
+    require(counts["event_synapse"] > 0 and counts["lif_update"] > 0,
+            f"examples launches {counts}")
+    return dict(completed=",".join(out), seconds=json.dumps(took),
+                quickstart_batched_ms=float(re.search(
+                    r"in ([0-9.]+) ms", batched).group(1)),
+                quickstart_energy=json.dumps(next(
+                    l for l in qs if l.startswith("energy:"))),
+                spikify_rel_err=json.dumps(errs),
+                spikify_event_fraction=json.dumps([float(re.search(
+                    r"event fraction ([0-9.]+)", l).group(1))
+                    for l in spk if l.startswith("T=")]),
+                train_snn=json.dumps(loss), train_snn_last=json.dumps(tr[-1]),
+                launches=json.dumps(counts), card=json.dumps(card))
 
 
 def sync_all() -> None:
@@ -3632,6 +3756,12 @@ def main() -> int:
                                        x_big))
     phase_s["kernels"] = lap()
 
+    # the oracle-equivalence sweep's 64 cases on both routes
+    sweep = phase_sweep(dev, card)
+    log("sweep", **sweep)
+    counts_sweep = json.loads(sweep["launches"])
+    phase_s["sweep"] = lap()
+
     # 3. serve: warm once, then the counted run of the dense route
     drive(dense, streams, policy)
     telemetry = []
@@ -3735,6 +3865,15 @@ def main() -> int:
     for row in kernels:
         row["train_launches"] = counts_train[row["name"]]
 
+    # the three SNN example twins, as a user runs them
+    ex = phase_examples(card)
+    log("examples", **ex)
+    counts_ex = json.loads(ex["launches"])
+    for row in kernels:
+        row["sweep_launches"] = counts_sweep[row["name"]]
+        row["examples_launches"] = counts_ex[row["name"]]
+    phase_s["examples"] = lap()
+
     # 10. mesh: the data-parallel mesh, serving, device loss and training
     mesh_lines, counts_mesh = phase_mesh(
         dev, card, mapped, {"dense": dense, "packed": packed}, streams)
@@ -3790,7 +3929,8 @@ def main() -> int:
     log("timing", **phase_s)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
-            "train_launches", "mesh_launches", "lm_launches",
+            "train_launches", "sweep_launches", "examples_launches",
+            "mesh_launches", "lm_launches",
             "lm_models_launches", "lm_mesh_launches", "lm_train_launches",
             "dryrun_launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "on_path")

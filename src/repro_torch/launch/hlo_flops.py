@@ -14,8 +14,17 @@ module counts **aten ops, not HLO**:
     ``2 * prod(out) * K``) counts ``dot_flops``; the aten counterparts of
     the HLO elementwise opcodes the JAX package counts (``add``, ``mul``,
     ``exp``, ``tanh``, ...) count ``prod(out)`` (``clamp`` one per bound);
-    reductions (``sum``, ``mean``, ``amax``, ``cumsum``, ...) count their
-    input's elements, as its ``reduce`` rule does.  Nothing else counts.
+    reductions (``sum``, ``amax``, ``cumsum``, ...) count their input's
+    elements, as its ``reduce`` rule does.  A fused aten op (``_softmax``,
+    ``_log_softmax``, ``logsumexp``, ``mean``, ``relu``, ``silu``,
+    ``gelu``, ``softplus``, ``floor_divide``, ``searchsorted`` and the
+    backwards ``_softmax_backward_data``, ``_log_softmax_backward_data``,
+    ``tanh_backward``) counts the FLOPs of the JAX package's HLO for the
+    same function by the same two rules, its decomposition written beside
+    it in ``_FUSED``.  The ops in ``_NO_FLOPS`` move or select data (the
+    HLO's copy, gather, scatter, compare, select, sort, ...) and count
+    none, as there.  An op in no set counts nothing;
+    ``tests/test_torch_dryrun.py`` fails if a dry-run cell dispatches one.
   * bytes: every op that is not a view reads each tensor input once and
     writes each output once.  This is the unfused eager model: each op
     reaches memory on its own, so it counts more than XLA's fused bytes
@@ -61,17 +70,92 @@ KINDS = COLLECTIVES + ("p2p",)
 # the aten ops counting prod(out): the HLO elementwise opcodes the JAX
 # package counts, by their aten names (subtract: sub, rsub; divide: div,
 # reciprocal; power: pow; exponential: exp; negate: neg; logistic:
-# sigmoid; round-nearest-*: round); in-place forms count alike
+# sigmoid; round-nearest-*: round; sign: sign, sgn); in-place forms count
+# alike
 _ELEMENTWISE = {
     "add", "sub", "rsub", "mul", "div", "reciprocal", "pow", "maximum",
     "minimum", "tanh", "exp", "log", "rsqrt", "sqrt", "neg", "abs", "sign",
-    "cos", "sin", "sigmoid", "expm1", "log1p", "atan2", "remainder",
+    "sgn", "cos", "sin", "sigmoid", "expm1", "log1p", "atan2", "remainder",
     "floor", "ceil", "round", "erf",
 }
 _CLAMPS = {"clamp", "clamp_min", "clamp_max"}
 # the reductions, one FLOP per input element (HLO reduce / reduce-window)
-_REDUCTIONS = {"sum", "mean", "amax", "amin", "prod", "logsumexp", "cumsum",
-               "cumprod"}
+_REDUCTIONS = {"sum", "amax", "amin", "prod", "cumsum", "cumprod"}
+
+
+def _gelu(a, kw) -> int:
+    n = a[0].numel()
+    # tanh: x*x, *x, *0.044715, +x, *sqrt(2/pi), tanh, +1, *0.5, *x;
+    # exact: x/sqrt(2), erf, +1, *x, /2
+    return (9 if kw.get("approximate") == "tanh" else 5) * n
+
+
+# The fused aten ops, each counted as the JAX package's HLO of the same
+# function counts: every elementwise op prod(out), every row reduction its
+# input's elements (n the input's elements, r its rows, the elements of a
+# row-reduced result).  Each gets (args, kwargs, outputs).
+_FUSED = {
+    # jax.nn.softmax: max-reduce n, subtract n, exp n, sum-reduce n,
+    # divide n
+    "_softmax": lambda a, kw, o: 5 * a[0].numel(),
+    # jax.nn.log_softmax: max-reduce n, subtract n, exp n, sum-reduce n,
+    # log r, subtract n
+    "_log_softmax": lambda a, kw, o: 5 * a[0].numel()
+    + a[0].numel() // max(a[0].shape[a[1]], 1),
+    # softmax's JVP y * (g - sum(g * y)), given g and y: multiply n,
+    # sum-reduce n, subtract n, multiply n
+    "_softmax_backward_data": lambda a, kw, o: 4 * a[0].numel(),
+    # log_softmax's g - exp(y) * sum(g), given g and y: exp n, sum-reduce
+    # n, multiply n, subtract n
+    "_log_softmax_backward_data": lambda a, kw, o: 4 * a[0].numel(),
+    # jax.nn.logsumexp: max-reduce n, subtract n, exp n, sum-reduce n,
+    # abs r, log r, add r
+    "logsumexp": lambda a, kw, o: 4 * a[0].numel() + 3 * o[0].numel(),
+    # jnp.mean: sum-reduce n, divide r
+    "mean": lambda a, kw, o: a[0].numel() + o[0].numel(),
+    # jax.nn.relu: maximum n
+    "relu": lambda a, kw, o: a[0].numel(),
+    # jax.nn.silu, x * logistic(x), logistic as 1 / (1 + exp(-x)):
+    # negate, exp, add, divide, multiply
+    "silu": lambda a, kw, o: 5 * a[0].numel(),
+    "gelu": lambda a, kw, o: _gelu(a, kw),
+    # jax.nn.softplus, logaddexp(x, 0): maximum, abs, negate, exp, log1p,
+    # add (the x != x select is free)
+    "softplus": lambda a, kw, o: 6 * a[0].numel(),
+    # tanh's JVP (g + g * y) * (1 - y), given g and y: multiply, add,
+    # subtract, multiply
+    "tanh_backward": lambda a, kw, o: 4 * a[0].numel(),
+    # jnp.floor_divide of integers: divide, sign, remainder, subtract 1
+    # where the signs differ (compare, and, select free)
+    "floor_divide": lambda a, kw, o: 4 * o[0].numel(),
+    # jnp.searchsorted: ceil(log2(n + 1)) trips of a binary search, each
+    # four integer adds a query and one for the trip counter
+    # (ceil(log2(n + 1)) is n's bit length)
+    "searchsorted": lambda a, kw, o: a[0].shape[-1].bit_length() * (
+        4 * o[0].numel() + 1),
+}
+# Ops that move, fill or select data and do no arithmetic; the JAX
+# package's HLO of each is a copy, broadcast, iota, concatenate, pad,
+# reverse, gather, scatter (its combiner is not counted), compare, select,
+# and/not or sort, none of which it counts.
+_NO_FLOPS = {
+    # copies and layout
+    "clone", "copy", "_to_copy", "cat", "stack", "constant_pad_nd", "flip",
+    "roll", "tril", "_local_scalar_dense",
+    # fills and allocators
+    "zeros", "ones", "full", "arange", "scalar_tensor", "new_zeros",
+    "new_ones", "new_full", "zeros_like", "ones_like",
+    # gathers
+    "index", "index_select", "gather", "embedding",
+    # scatters, and the backwards that scatter a gradient into zeros
+    "index_put", "index_copy", "index_add", "scatter", "scatter_add",
+    "embedding_dense_backward", "select_backward", "slice_backward",
+    # comparisons, selects and logic
+    "eq", "ne", "lt", "le", "gt", "ge", "where", "masked_fill",
+    "bitwise_and", "bitwise_not",
+    # sorts
+    "sort", "topk",
+}
 # free beside the views: a reshape's copy-free alias and the allocators
 _FREE = {"_unsafe_view", "empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided"}
@@ -238,6 +322,8 @@ class CostCounter(TorchDispatchMode):
             self.flops += bounds * sum(t.numel() for t in outs)
         elif name in _REDUCTIONS:
             self.flops += args[0].numel()
+        elif name in _FUSED:
+            self.flops += _FUSED[name](args, kwargs, outs)
         if not func.is_view and name not in _FREE:
             self.bytes += sum(_nbytes(t) for t in ins)
             self.bytes += sum(_nbytes(t) for t in outs)

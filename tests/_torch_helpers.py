@@ -20,8 +20,8 @@ from repro_torch.core.accelerator import map_model as port_map_model
 from repro_torch.core.energy import AcceleratorSpec as PortSpec
 from repro_torch.core.lif import LIFParams as PortLIF
 
-STAT_FIELDS = ("cycles", "rows_touched", "engine_ops", "events",
-               "sn_bytes_touched")
+from _torch_sweep import STAT_FIELDS, case_layers, layer_specs  # noqa: F401
+
 
 
 def pruned_mlp(rng, sizes, density=0.5, scale=0.5):
@@ -34,50 +34,6 @@ def pruned_mlp(rng, sizes, density=0.5, scale=0.5):
     return ws
 
 
-def case_layers(case: dict, rng):
-    """Layer descriptions of a golden-equivalence case as
-    ``(kind, payload)`` pairs, drawn exactly as the reference suite draws
-    them (tests/test_equivalence_prop.py::build_case)."""
-    out = []
-    shape = tuple(case["in_shape"])
-    for ld in case["layers"]:
-        if ld["kind"] == "dense":
-            n_in = int(np.prod(shape))
-            w = rng.normal(0, 0.6, (n_in, ld["n_out"]))
-            w[rng.random(w.shape) > ld["density"]] = 0
-            if (w != 0).sum() == 0:
-                w[0, 0] = 0.5
-            out.append(("dense", dict(w=w.astype(np.float32))))
-            shape = (ld["n_out"], 1, 1)
-        elif ld["kind"] == "conv":
-            k = rng.normal(0, 0.8, (ld["c_out"], shape[0], ld["k"], ld["k"]))
-            k[rng.random(k.shape) > ld["density"]] = 0
-            if (k != 0).sum() == 0:
-                k[0, 0, 0, 0] = 0.5
-            kw = dict(kernel=k.astype(np.float32), in_shape=shape,
-                      stride=ld["stride"], padding=ld["padding"])
-            out.append(("conv", kw))
-            shape = ref_layers.Conv2d(**kw).out_shape
-        elif ld["kind"] == "pool":
-            out.append(("pool", dict(in_shape=shape, pool=ld["pool"])))
-            shape = ref_layers.SumPool2d(shape, ld["pool"]).out_shape
-        else:
-            raise ValueError(ld["kind"])
-    return out
-
-
-def _specs(layers, mod):
-    specs = []
-    for kind, kw in layers:
-        if kind == "dense":
-            specs.append(mod.Dense(**kw))
-        elif kind == "conv":
-            specs.append(mod.Conv2d(**kw))
-        else:
-            specs.append(mod.SumPool2d(kw["in_shape"], kw["pool"]))
-    return specs
-
-
 def map_both(layers, n_engines, n_caps, *, beta=0.8, threshold=0.7,
              weight_mem_bytes=1 << 20, **kw):
     """``(reference mapped model, port mapped model)`` of the same layers.
@@ -86,12 +42,12 @@ def map_both(layers, n_engines, n_caps, *, beta=0.8, threshold=0.7,
         layers = [("dense", dict(w=w)) for w in layers]
     n = len(layers)
     ref = ref_map_model(
-        _specs(layers, ref_layers),
+        layer_specs(layers, ref_layers),
         RefSpec("t", n_cores=n, n_engines=n_engines, n_caps=n_caps,
                 weight_mem_bytes=weight_mem_bytes),
         lif=RefLIF(beta=beta, threshold=threshold), **kw)
     port = port_map_model(
-        _specs(layers, port_layers),
+        layer_specs(layers, port_layers),
         PortSpec("t", n_cores=n, n_engines=n_engines, n_caps=n_caps,
                  weight_mem_bytes=weight_mem_bytes),
         lif=PortLIF(beta=beta, threshold=threshold), **kw)

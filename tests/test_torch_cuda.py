@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.accelerator import map_model, run
+from _torch_sweep import (batched_diffs, build_case, map_case, oracle_diffs,
+                          sweep_cases)
+from repro_torch.core.accelerator import map_model, run, run_batch
 from repro_torch.core.energy import AcceleratorSpec
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.quant import pack_signmag
@@ -390,6 +392,26 @@ def test_cuda_engine_matches_cpu_path_and_oracle(card, quant_bits):
     res = run_bucketed(mapped.pack(device=card), streams)
     for r, s in zip(res, streams):
         np.testing.assert_array_equal(r.out_spikes, run(mapped, s).out_spikes)
+
+
+@pytest.mark.parametrize("idx", range(64))
+def test_cuda_equivalence_sweep_on_both_routes(card, idx):
+    """The oracle-equivalence sweep's case ``idx`` (``tests/_torch_sweep.py``:
+    conv COO tiles with stride and padding, compressed dictionaries fused
+    into one tile, MEM_E caps down to 0, 2/4/8-bit mixtures) on both CUDA
+    routes, bit for bit against the CPU path and the numpy oracle."""
+    case = sweep_cases()[idx]
+    layers, spikes = build_case(case)
+    model = map_case(case, layers)
+    cap = case["max_events"]
+    oracle = run_batch(model, spikes, max_events=cap)
+    for packed_ops in (False, True):
+        got = br.run_batched(model.pack(device=card, packed_ops=packed_ops),
+                             spikes, max_events=cap)
+        cpu = br.run_batched(model.pack(device="cpu", packed_ops=packed_ops),
+                             spikes, max_events=cap)
+        assert batched_diffs(got, cpu) == [], packed_ops
+        assert oracle_diffs(got, oracle) == [], packed_ops
 
 
 @pytest.mark.parametrize("m,k,n", [

@@ -8,6 +8,7 @@ machinery test, which fails on JAX 0.9.0 (Explicit mesh axes), is held to
 the port's own counts on meta and on real CPU tensors.
 """
 
+import collections
 import dataclasses
 import json
 import math
@@ -16,7 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 import repro.configs as ref_configs
 import repro.launch.hlo_analysis as ref_analysis
@@ -28,6 +30,7 @@ from repro_torch.configs import ARCH_IDS, applicable_shapes, get_smoke_config
 from repro_torch.configs.common import ShapeSpec
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.device import resolve_device
+import repro_torch.launch.hlo_flops as HF
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.hlo_flops import CostCounter, summarize, to_cost
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
@@ -130,6 +133,181 @@ def test_collective_twin_counts_every_trip(reference):
     stats = H.collective_bytes(cost)
     assert stats.count_by_kind["all-reduce"] == 5
     assert stats.total_bytes == summarize(cost)["total_coll_bytes"] == 5120
+
+
+# the reference's loop-aware count of jax.nn's fused functions on a
+# [4, 1024] float32 input (softmax's backward under JAX's custom JVP, the
+# form aten's _softmax_backward_data computes)
+_FUSED_REFERENCE = r"""
+import json
+import jax, jax.numpy as jnp
+from repro.launch.hlo_flops import analyze_hlo
+
+x = jnp.zeros((4, 1024), jnp.float32)
+
+def count(f, *args):
+    return analyze_hlo(jax.jit(f).lower(*args).compile().as_text()).flops
+
+def vjp(f):
+    return lambda a, g: jax.vjp(f, a)[1](g)[0]
+
+out = {
+    "softmax": count(jax.nn.softmax, x),
+    "log_softmax": count(jax.nn.log_softmax, x),
+    "relu": count(jax.nn.relu, x),
+    "silu": count(jax.nn.silu, x),
+    "gelu_tanh": count(lambda a: jax.nn.gelu(a, approximate=True), x),
+    "gelu": count(lambda a: jax.nn.gelu(a, approximate=False), x),
+    "softplus": count(jax.nn.softplus, x),
+    "logsumexp": count(lambda a: jax.nn.logsumexp(a, -1), x),
+    "mean": count(lambda a: a.mean(-1), x),
+    "floor_divide": count(lambda a: a // 3, x.astype(jnp.int32)),
+    "searchsorted": count(lambda a: jnp.searchsorted(a, a, side="left"),
+                          jnp.zeros((64,), jnp.int32)),
+    "tanh_grad": count(vjp(jnp.tanh), x, x),
+    "log_softmax_grad": count(vjp(jax.nn.log_softmax), x, x),
+}
+jax.config.update("jax_softmax_custom_jvp", True)
+out["softmax_grad"] = count(vjp(jax.nn.softmax), x, x)
+print(json.dumps(out))
+"""
+
+N, R = 4 * 1024, 4             # the input's elements and rows
+W = N // 32                    # one first stage of XLA CPU's reductions
+
+
+@pytest.fixture(scope="module")
+def fused_reference():
+    return json.loads(run_reference(_FUSED_REFERENCE, devices=1)
+                      .strip().splitlines()[-1])
+
+
+def _count(f, *shape, dtype=torch.float32) -> int:
+    x = torch.empty(*shape, dtype=dtype, device="meta")
+    with CostCounter(arguments=(x,)) as c:
+        f(x)
+    return c.flops
+
+
+# op -> (the port's function, the reference's count less the port's and
+# why).  XLA's CPU backend reduces a row in two stages, a 32-wide
+# reduce-window and then a reduce, so each row reduction counts N/32 more
+# there than the decomposition's N.
+_FUSED_CASES = {
+    "softmax": (lambda x: torch.softmax(x, -1), 2 * W),
+    # the output's fusion recomputes x - max
+    "log_softmax": (lambda x: torch.log_softmax(x, -1), 2 * W + N),
+    "relu": (torch.relu, 0),
+    "silu": (F.silu, 0),
+    "gelu_tanh": (lambda x: F.gelu(x, approximate="tanh"), 0),
+    # erf, fused with its neighbours, is expanded to a rational
+    # approximation of 53 elementwise ops (a lone erf counts one)
+    "gelu": (F.gelu, 52 * N),
+    # the opcode of log1p is log-plus-one, which the reference's set
+    # does not name
+    "softplus": (F.softplus, -N),
+    "logsumexp": (lambda x: torch.logsumexp(x, -1), 2 * W),
+    "mean": (lambda x: x.mean(-1), W),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_FUSED_CASES))
+def test_fused_op_counts_match_reference(fused_reference, op):
+    """Each fused aten op of a ``[4, 1024]`` float32 meta tensor counts the
+    FLOPs of its decomposition (``hlo_flops._FUSED``), which is the
+    reference's ``analyze_hlo`` of the jitted ``jax.nn`` function less what
+    XLA's CPU backend adds: the first stage of each row reduction, and
+    the fusion artefacts named beside each case."""
+    f, excess = _FUSED_CASES[op]
+    got = _count(f, 4, 1024)
+    assert got > 0
+    assert got + excess == fused_reference[op]
+
+
+def test_integer_ops_count_as_reference(fused_reference):
+    """``floor_divide`` of int32 (divide, sign, remainder, subtract) and
+    ``searchsorted`` of 64 sorted values (7 trips of 4 adds a query and
+    the trip counter's) equal the reference's counts."""
+    assert _count(lambda x: x // 3, 4, 1024, dtype=torch.int32) == \
+        fused_reference["floor_divide"] == 4 * N
+    assert _count(lambda x: torch.searchsorted(x, x), 64,
+                  dtype=torch.int32) == fused_reference["searchsorted"] \
+        == 7 * (4 * 64 + 1)
+
+
+def _grad_count(f) -> int:
+    """FLOPs of ``f``'s forward and its backward to the input, given a
+    cotangent (``torch.autograd.grad``; the reference's ``jax.vjp``)."""
+    x = torch.empty(4, 1024, device="meta", requires_grad=True)
+    g = torch.empty(4, 1024, device="meta")
+    with CostCounter(arguments=(x, g)) as c:
+        torch.autograd.grad(f(x), x, g)
+    return c.flops
+
+
+def test_fused_backward_counts_match_reference(fused_reference):
+    """Forward and backward of softmax, log_softmax and tanh against the
+    reference's ``analyze_hlo`` of ``jax.vjp`` (softmax's under JAX's
+    custom JVP, ``y * (g - sum(g * y))``, which is
+    ``_softmax_backward_data``'s form):
+
+    * softmax: the port counts 5N + 4N; the reference adds the first stage
+      of its three reductions and negates the row sum before distributing
+      it (``y*g + y*(-s)``, R more).
+    * log_softmax: the port counts 5N + R + 4N (``g - exp(y) * sum(g)``);
+      the reference never forms the output (N + R less) and reuses the
+      forward's exp and sum in the backward (``g + e * (-sum(g) / s)``:
+      N less, 2R more), besides the first stages of three reductions.
+    * tanh: the port's 1 + 4N (``(g + g*y) * (1 - y)``) equals it."""
+    sm = _grad_count(lambda x: torch.softmax(x, -1))
+    assert sm == 9 * N
+    assert sm + 3 * W + R == fused_reference["softmax_grad"]
+    lsm = _grad_count(lambda x: torch.log_softmax(x, -1))
+    assert lsm == 9 * N + R
+    assert lsm - (N + R) - N + 2 * R + 3 * W == \
+        fused_reference["log_softmax_grad"]
+    assert _grad_count(torch.tanh) == 5 * N == fused_reference["tanh_grad"]
+
+
+class _Recording(CostCounter):
+    """A counter that also records the name of every op it sees."""
+
+    seen: collections.Counter = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.seen[func] += 1
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+def test_every_dispatched_op_is_classified(monkeypatch):
+    """Every aten op that the smoke cells of ``--all`` dispatch (each
+    architecture at each of its shapes; decode with both rule sets) is
+    counted (the matmul registry, elementwise, clamps, reductions, the
+    fused table), free (views, allocators), or in ``_NO_FLOPS``, the
+    commented set of ops that do no arithmetic.  An op in none of them
+    would count 0 unnoticed."""
+    monkeypatch.setattr(D, "SHAPES", _SMOKE_SHAPES)
+    monkeypatch.setattr(D, "CostCounter", _Recording)
+    _Recording.seen.clear()
+    mesh = make_mesh((2, 2), ("data", "model"), device="meta", spoof=4)
+    for arch, shape_name in _CELLS:
+        rule_sets = [("base", "baseline")]
+        if _SMOKE_SHAPES[shape_name].kind == "decode":
+            rule_sets.append(("sp", "sp"))
+        for rules, attn in rule_sets:
+            D.lower_cell(arch, shape_name, mesh, rules, attn,
+                         cfg=get_smoke_config(arch), full_depth=True)
+    counted = (HF._ELEMENTWISE | HF._CLAMPS | HF._REDUCTIONS
+               | set(HF._FUSED))
+    unknown = sorted({HF._op_name(f) for f in _Recording.seen
+                      if f.overloadpacket not in flop_registry
+                      and HF._op_name(f) not in counted | HF._FREE
+                      | HF._NO_FLOPS})
+    assert not unknown, unknown
+    names = {HF._op_name(f) for f in _Recording.seen}
+    assert {"_softmax", "_softmax_backward_data", "floor_divide",
+            "searchsorted", "logsumexp", "mean"} <= names
 
 
 @pytest.fixture
@@ -369,3 +547,32 @@ def test_run_cell_writes_reference_keys(smoke_internlm2, tmp_path, capsys):
     assert (tmp_path / "pod" / "internlm2_1_8b_train_4k_base_baseline.json"
             ).exists()
     assert "[dryrun OK]" in capsys.readouterr().out
+
+
+def test_multi_pod_cell_at_smoke_width(smoke_internlm2, monkeypatch,
+                                       tmp_path):
+    """``run_cell(multi_pod=True)`` counts a cell on the spoofed (2, 16, 16)
+    meta mesh and writes it under ``multipod/``: the smoke InternLM2's
+    train step (on the mesh's first device) counts as on the (16, 16) pod,
+    and its SP decode step shards over 512 devices, with all-reduces and
+    point-to-point cache copies, each reckoned per device."""
+    monkeypatch.setattr(D, "SHAPES", {
+        **D.SHAPES, "decode_32k": ShapeSpec("decode_32k", 32, 8, "decode")})
+    pod = D.run_cell("internlm2_1_8b", "train_4k", False, str(tmp_path),
+                     verbose=False)
+    multi = D.run_cell("internlm2_1_8b", "train_4k", True, str(tmp_path),
+                       verbose=False)
+    assert multi["mesh"] == [2, 16, 16] and pod["mesh"] == [16, 16]
+    assert multi["loop_aware"] == pod["loop_aware"]
+    assert multi["roofline"]["n_devices"] == 512
+    dec = D.run_cell("internlm2_1_8b", "decode_32k", True, str(tmp_path),
+                     verbose=False)
+    on_disk = json.loads((tmp_path / "multipod" /
+                          "internlm2_1_8b_decode_32k.json").read_text())
+    assert on_disk["loop_aware"] == dec["loop_aware"]
+    assert (dec["rules"], dec["attn"]) == ("sp", "sp")
+    r = dec["roofline"]
+    assert r["n_devices"] == 512
+    assert math.isclose(r["hlo_flops"] * 512, dec["loop_aware"]["flops"])
+    assert dec["collectives"]["counts"]["all-reduce"] > 0
+    assert dec["collectives"]["bytes"]["p2p"] > 0

@@ -58,6 +58,46 @@ def test_run_batched_mem_e_cap(max_events):
         res.overflow[0], np.maximum((spikes > 0).sum(-1) - max_events, 0))
 
 
+def test_overflow_propagates_to_downstream_layers(rng):
+    """Twin of the reference's test of the same name: on a 3-layer stack
+    where the cap binds, the truncated layer-0 stream changes what layers
+    1-2 receive, and spikes, stats, utilisation and overflow equal the
+    oracle's under the same cap at every depth, 0 included, on both
+    routes."""
+    ws = pruned_mlp(rng, (14, 12, 10, 6), density=0.8)
+    ref, port = map_both(ws, 4, 8, beta=0.85, threshold=0.5,
+                         weight_mem_bytes=1 << 16)
+    spikes = (rng.random((4, 7, 14)) < 0.6).astype(np.float32)
+    for packed_ops in (False, True):
+        packed = port.pack(device="cpu", packed_ops=packed_ops)
+        full = br.run_batched(packed, spikes)
+        for depth in (0, 2, 5, None):
+            res = br.run_batched(packed, spikes, max_events=depth)
+            assert_batched_equals_oracle(
+                res, run_batch(ref, spikes, max_events=depth), 3,
+                f"packed_ops={packed_ops} depth={depth}")
+            if depth == 2:
+                assert res.per_layer_stats[1].events.sum() \
+                    < full.per_layer_stats[1].events.sum(), \
+                    "cap on layer 0 did not propagate to layer 1"
+
+
+def test_zero_mem_e_depth(rng):
+    """Twin of the reference's test of the same name: a zero-depth MEM_E
+    drops every event (silent output, full overflow) on both routes, equal
+    to the oracle's."""
+    ref, port = map_both(pruned_mlp(rng, (16, 8)), 4, 8,
+                         weight_mem_bytes=1 << 16)
+    spikes = (rng.random((2, 4, 16)) < 0.5).astype(np.float32)
+    for packed_ops in (False, True):
+        res = br.run_batched(port.pack(device="cpu", packed_ops=packed_ops),
+                             spikes, max_events=0)
+        assert res.out_spikes.sum() == 0
+        np.testing.assert_array_equal(res.overflow[0], (spikes > 0).sum(-1))
+        assert_batched_equals_oracle(res, run_batch(ref, spikes,
+                                                    max_events=0), 1)
+
+
 def test_run_batched_degenerate_shapes():
     """B=0 returns an empty result; T=1 and all-silent batches follow the
     ordinary path and stay bit-exact."""

@@ -83,3 +83,29 @@ def test_mesh_names_exported_without_jax():
     assert p.returncode == 0, p.stderr[-4000:]
     assert json.loads(p.stdout.strip().splitlines()[-1]) == \
         {"missing": [], "jax": False}
+
+
+_STANDALONE = r"""
+import json, runpy, sys
+sys.path.insert(0, "tests")
+import _torch_sweep
+assert len(_torch_sweep.sweep_cases()) == 64
+for script in ("torch_quickstart", "torch_train_snn", "torch_spikify_ffn"):
+    assert callable(runpy.run_path(f"examples/{script}.py")["main"])
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "repro")
+                or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps(leaked))
+"""
+
+
+def test_sweep_and_example_twins_import_neither_jax_nor_reference():
+    """``tests/_torch_sweep.py`` (which the card's smoke script runs) and
+    the three SNN example twins load without JAX or the reference
+    package."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    p = subprocess.run([sys.executable, "-c", _STANDALONE],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == []
