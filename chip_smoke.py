@@ -860,7 +860,6 @@ def phase_stream(dense, streams_of, policy, calib) -> dict:
 
     rec = FlightRecorder()
     serve_async(dense, trace, tracer=rec, **kw)
-    rec.detach_jit_probe()
     last = rec.last()
     kinds = [sp.kind for sp in last.spans] if last is not None else []
     require(all(k in kinds for k in ("pad", "dispatch", "slice")),

@@ -56,6 +56,7 @@ from repro_torch.core.lif import LIFParams
 from repro_torch.core.memories import DispatchStats, stats_vectors
 from repro_torch.core.quant import check_bits, lanes_per_byte, pack_signmag
 from repro_torch.device import canonical_device, resolve_device
+from repro_torch.engine.tracing import span
 from repro_torch.kernels import ops
 
 # The reference's Pallas dest tile: kept for the padded widths, so that
@@ -289,8 +290,8 @@ def trace_count() -> int:
 
 def add_trace_listener(fn) -> None:
     """Subscribe ``fn(kind, donated)`` to new-shape events — called once per
-    shape the engine has not seen (kind ``"batched"``).  The flight
-    recorder's jit probe binds here; a listener that raises is ignored."""
+    shape the engine has not seen (kind ``"batched"``, or ``"sharded"``
+    on a mesh); a listener that raises is ignored."""
     if fn not in _trace_listeners:
         _trace_listeners.append(fn)
 
@@ -489,13 +490,14 @@ def _finalize(packed: PackedModel, in_spikes: np.ndarray,
                                 spec=packed.spec, per_layer_bits=bits)
     stats_all, util_all, drop_all = [], [], []
     layer_in = in_spikes
-    for li, layer in enumerate(packed.layers):
-        stats, util, overflow = _layer_stats(layer_in, layer, max_events,
-                                             sn_capacity_rows)
-        stats_all.append(stats)
-        util_all.append(util)
-        drop_all.append(overflow)
-        layer_in = layer_outs[li]
+    with span("engine.stats"):
+        for li, layer in enumerate(packed.layers):
+            stats, util, overflow = _layer_stats(layer_in, layer, max_events,
+                                                 sn_capacity_rows)
+            stats_all.append(stats)
+            util_all.append(util)
+            drop_all.append(overflow)
+            layer_in = layer_outs[li]
     return BatchedRunResult(out_spikes=out, per_layer_stats=stats_all,
                             per_layer_util=util_all, overflow=drop_all,
                             spec=packed.spec, per_layer_bits=bits)
@@ -541,8 +543,13 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     b, t, _ = host.shape
     donate = should_donate(donate, packed.device)
     _note_shape(packed, b, t, max_events, donate)
-    spikes = _upload(packed, host, donate)
-    layer_outs = [o.cpu().numpy() for o in
-                  _forward_impl(packed, spikes, max_events)]
+    # stage spans: the upload, the issue of every layer's kernels, and the
+    # readback, where the host waits for the card
+    with span("engine.upload"):
+        spikes = _upload(packed, host, donate)
+    with span("engine.forward"):
+        outs = _forward_impl(packed, spikes, max_events)
+    with span("engine.readback"):
+        layer_outs = [o.cpu().numpy() for o in outs]
     return _finalize(packed, host, layer_outs, max_events, sn_capacity_rows,
                      with_stats)

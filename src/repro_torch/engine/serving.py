@@ -36,6 +36,7 @@ from repro_torch.core.memories import DispatchStats
 from repro_torch.device import canonical_device, resolve_device
 from repro_torch.engine import batched_run as br
 from repro_torch.engine.sharded_run import run_sharded
+from repro_torch.engine.tracing import span
 
 _log = logging.getLogger(__name__)
 
@@ -265,45 +266,56 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
     ``(kind, t0, t1, attrs)`` tuples for the ``pad`` and ``slice`` stages
     measured on ``now`` (the caller's clock; defaults to
     ``time.monotonic``).  Under a VirtualClock these are zero-width point
-    events, so traces stay replay-deterministic.
+    events, so traces stay replay-deterministic.  The call and its stages
+    are stage spans (:func:`~repro_torch.engine.tracing.span`):
+    ``serving.execute`` around ``serving.pad``, the engine's own,
+    ``serving.record`` and ``serving.slice``; the two reads of ``now``
+    that bound ``pad`` and ``slice`` in ``span_log`` are the reads of
+    those spans, taken inside their profiler ranges, so each stage is
+    timed once.
     """
-    clock = time.monotonic if now is None else now
+    clock = None                # pad and slice read a clock for span_log
     if span_log is not None:
-        t_pad0 = clock()
-    padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in),
-                      dtype=np.float32)
-    for row, i in enumerate(plan.indices):
-        padded[row, :streams[i].shape[0]] = streams[i]
-    if span_log is not None:
-        span_log.append(("pad", t_pad0, clock(),
-                         {"b_pad": plan.b_pad, "t_pad": plan.t_pad}))
-    t0 = time.perf_counter()
-    if mesh is None:
-        res = br.run_batched(packed, padded, max_events=max_events,
-                             sn_capacity_rows=sn_capacity_rows,
-                             with_stats=with_stats, donate=donate)
-    else:
-        res = run_sharded(packed, padded, mesh=mesh, max_events=max_events,
-                          sn_capacity_rows=sn_capacity_rows,
-                          with_stats=with_stats, donate=donate)
-    dt = time.perf_counter() - t0
-    record = {
-        "seq": int(seq),
-        "ts": float(time.monotonic() if ts is None else ts),
-        "b_pad": plan.b_pad, "t_pad": plan.t_pad,
-        "n_requests": len(plan.indices),
-        "events": int(sum((streams[i] > 0).sum() for i in plan.indices)),
-        "out_spikes": int(sum(
-            res.out_spikes[row, :streams[i].shape[0]].sum()
-            for row, i in enumerate(plan.indices))),
-        "seconds": dt}
-    if span_log is not None:
-        t_sl0 = clock()
-    results = [_slice_request(res, row, streams[i].shape[0], with_stats)
-               for row, i in enumerate(plan.indices)]
-    if span_log is not None:
-        span_log.append(("slice", t_sl0, clock(),
-                         {"n_requests": len(plan.indices)}))
+        clock = time.monotonic if now is None else now
+    with span("serving.execute"):
+        with span("serving.pad", clock) as pad:
+            padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in),
+                              dtype=np.float32)
+            for row, i in enumerate(plan.indices):
+                padded[row, :streams[i].shape[0]] = streams[i]
+        if span_log is not None:
+            span_log.append(("pad", pad.t0, pad.t1,
+                             {"b_pad": plan.b_pad, "t_pad": plan.t_pad}))
+        t0 = time.perf_counter()
+        if mesh is None:
+            res = br.run_batched(packed, padded, max_events=max_events,
+                                 sn_capacity_rows=sn_capacity_rows,
+                                 with_stats=with_stats, donate=donate)
+        else:
+            res = run_sharded(packed, padded, mesh=mesh,
+                              max_events=max_events,
+                              sn_capacity_rows=sn_capacity_rows,
+                              with_stats=with_stats, donate=donate)
+        dt = time.perf_counter() - t0
+        with span("serving.record"):
+            record = {
+                "seq": int(seq),
+                "ts": float(time.monotonic() if ts is None else ts),
+                "b_pad": plan.b_pad, "t_pad": plan.t_pad,
+                "n_requests": len(plan.indices),
+                "events": int(sum((streams[i] > 0).sum()
+                                  for i in plan.indices)),
+                "out_spikes": int(sum(
+                    res.out_spikes[row, :streams[i].shape[0]].sum()
+                    for row, i in enumerate(plan.indices))),
+                "seconds": dt}
+        with span("serving.slice", clock) as sl:
+            results = [_slice_request(res, row, streams[i].shape[0],
+                                      with_stats)
+                       for row, i in enumerate(plan.indices)]
+        if span_log is not None:
+            span_log.append(("slice", sl.t0, sl.t1,
+                             {"n_requests": len(plan.indices)}))
     return results, record
 
 

@@ -58,6 +58,7 @@ from repro_torch.device import (canonical_device, device_guard, exact_float32,
                                 resolve_device)
 from repro_torch.engine.sharded_run import (ServeMesh, n_batch_shards,
                                             snn_serve_mesh)
+from repro_torch.engine.tracing import span
 from repro_torch.engine.train_loop import (TrainLoopConfig, init_train_state,
                                            resume_or_init, train_loop)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -227,9 +228,11 @@ def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with exact_float32(spikes.device):
-            loss, acc = model.loss(tree_unflatten(params, leaves), spikes,
-                                   labels, cfg)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("train.forward"):
+                loss, acc = model.loss(tree_unflatten(params, leaves),
+                                       spikes, labels, cfg)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         return [loss.detach(), acc.detach(), *grads]
 
     def step(state: dict, batch: dict):
@@ -279,9 +282,10 @@ def make_snn_train_step(model: SNNModel, cfg, opt_cfg: AdamWConfig, *,
                 u + v for u, v in zip(total, part)]
         inv = 1.0 / k
         loss, acc, *grads = [x * inv for x in total]
-        params, opt, metrics = adamw_update(
-            opt_cfg, state["params"], state["opt"],
-            tree_unflatten(state["params"], grads), lr=batch.get("lr"))
+        with span("train.optimizer"):
+            params, opt, metrics = adamw_update(
+                opt_cfg, state["params"], state["opt"],
+                tree_unflatten(state["params"], grads), lr=batch.get("lr"))
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["acc"] = acc

@@ -83,7 +83,8 @@ from repro_torch.engine.registry import (DEFAULT_MODEL, ModelEntry,  # noqa: F40
 from repro_torch.engine.serving import (BatchPlan, BucketPolicy,
                                         RequestResult, execute_plan)
 from repro_torch.engine.sharded_run import DeviceLossError, shrink_mesh
-from repro_torch.engine.tracing import TIME_EDGES, FlightRecorder, Histogram
+from repro_torch.engine.tracing import (TIME_EDGES, FlightRecorder,
+                                        Histogram, span)
 
 _log = logging.getLogger(__name__)
 
@@ -462,8 +463,6 @@ class StreamServer:
         # VirtualClock replay produces byte-identical dumps; None = tracing
         # off, with zero observable effect on served bits (tested).
         self.tracer = tracer
-        if tracer is not None:
-            tracer.attach_jit_probe()
         self.metrics = ServerMetrics()
         # execute_plan records / rejection log, last METRICS_WINDOW entries
         self.telemetry: collections.deque = \
@@ -907,6 +906,13 @@ class StreamServer:
 
     def _dispatch(self, key: tuple[str, int, int], k: int,
                   forced: bool) -> None:
+        """Serve the first ``k`` requests of group ``key`` in one engine
+        call, with the bookkeeping, inside one ``server.dispatch`` span."""
+        with span("server.dispatch"):
+            self._serve_group(key, k, forced)
+
+    def _serve_group(self, key: tuple[str, int, int], k: int,
+                     forced: bool) -> None:
         name, gen, t_pad = key
         entry = self._entry_for((name, gen))
         q = self._pending[key]

@@ -29,13 +29,12 @@ measured per-stage breakdowns, not end-to-end averages):
     these, so long soaks never silently forget the tail the way the
     bounded ``METRICS_WINDOW`` deque does; the windowed values survive
     under explicit ``recent_*`` keys.
-  * jit probe — :meth:`FlightRecorder.attach_jit_probe` subscribes to the
-    engine's new-shape counter (:func:`repro_torch.engine.batched_run
-    .add_trace_listener`; the port has no jit, so a "compile" is the first
-    call of a shape), so those events land in ``jit_events``.  They are
-    deliberately **excluded** from ``dump()``: the first replay of a trace
-    sees new shapes and the second does not, so including them would break
-    the byte-identical-replay contract.
+  * :func:`span` — a stage span inside the port's front end, engine,
+    server and train step (:data:`STAGE_SPANS`).  While a
+    ``torch.profiler`` records, it opens a profiler range, so the stage
+    sits on the device trace's clock and names the host's share of every
+    idle gap of the card, and :func:`stage_totals` sums it; otherwise it
+    costs one flag read.
 
 Determinism contract (tested, ``tests/test_torch_tracing.py``): two
 ``run_scenario`` replays of the same scenario yield byte-identical
@@ -48,17 +47,30 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
 import json
 import math
+import threading
+import time
 
-from repro_torch.engine import batched_run as br
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 # The span taxonomy, in request-lifecycle order: the reference's tuple
 # (tests/test_torch_tracing.py locks it) — dashboards parsing dumps key on
 # these.
 SPAN_KINDS = ("admit", "queue", "schedule", "pad", "dispatch", "slice",
               "hw", "complete")
+
+# The stage spans of the port, outermost first: the server's dispatch, the
+# front end's engine call and its stages, the engine's stages inside
+# run_batched, and the train step's.  Locked like SPAN_KINDS: the
+# benchmark's readers key on these names.
+STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
+               "engine.upload", "engine.forward", "engine.readback",
+               "engine.stats", "serving.record", "serving.slice",
+               "train.forward", "train.backward", "train.optimizer")
 
 # Typed anomaly kinds a FlightRecorder can record; every chaos-injected
 # fault must surface as one of these.  Locked like SPAN_KINDS.
@@ -222,12 +234,6 @@ class FlightRecorder:
         assert tuple(self.hist) == HIST_KEYS
         self.n_started = 0
         self.n_completed = 0
-        # jit compile/donation events from the engine's trace probe —
-        # kept OUT of dump() (first replay compiles, second is cached;
-        # including them would break byte-identical replays)
-        self.jit_events: collections.deque[dict] = \
-            collections.deque(maxlen=256)
-        self._probe_attached = False
 
     # ---------------------------------------------------------- lifecycle
 
@@ -290,25 +296,6 @@ class FlightRecorder:
     def observe(self, key: str, value: float) -> None:
         self.hist[key].add(value)
 
-    # ------------------------------------------------------------- probes
-
-    def jit_event(self, kind: str, donated: bool) -> None:
-        self.jit_events.append({"kind": kind, "donated": bool(donated)})
-
-    def attach_jit_probe(self) -> "FlightRecorder":
-        """Subscribe to the engine's (process-global) retrace probe; jit
-        compile + donation events then land in :attr:`jit_events`.
-        Idempotent; :meth:`detach_jit_probe` unsubscribes."""
-        if not self._probe_attached:
-            br.add_trace_listener(self.jit_event)
-            self._probe_attached = True
-        return self
-
-    def detach_jit_probe(self) -> None:
-        if self._probe_attached:
-            br.remove_trace_listener(self.jit_event)
-            self._probe_attached = False
-
     # ------------------------------------------------------------ queries
 
     def trace(self, rid: int) -> RequestTrace | None:
@@ -331,8 +318,8 @@ class FlightRecorder:
         server-level events, lifetime anomaly counts, and the cumulative
         histograms.  Everything inside comes off the server's clock —
         under a VirtualClock two replays of the same trace produce
-        identical dumps (``jit_events`` and wall seconds are excluded for
-        exactly this reason)."""
+        identical dumps (wall seconds are excluded for exactly this
+        reason)."""
         return {
             "n_started": int(self.n_started),
             "n_completed": int(self.n_completed),
@@ -348,3 +335,60 @@ class FlightRecorder:
         """Sorted-keys JSON of :meth:`dump` — the byte-comparable form the
         determinism tests compare."""
         return json.dumps(self.dump(), sort_keys=True)
+
+
+# ------------------------------------------------------------ stage spans
+
+_OFF = contextlib.nullcontext()
+_totals_lock = threading.Lock()
+_totals: dict[str, list] = {}
+
+
+class _Span:
+    """One stage span: a profiler range while a profiler records, inside
+    which ``clock`` is read on entry (``t0``) and exit (``t1``)."""
+
+    __slots__ = ("name", "clock", "range", "t0", "t1")
+
+    def __init__(self, name: str, clock, profiled: bool):
+        self.name, self.clock = name, clock
+        self.range = _RecordFunctionFast(name) if profiled else None
+
+    def __enter__(self) -> "_Span":
+        if self.range is not None:
+            self.range.__enter__()
+        self.t0 = self.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = self.clock()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+            with _totals_lock:
+                tot = _totals.setdefault(self.name, [0.0, 0])
+                tot[0] += self.t1 - self.t0
+                tot[1] += 1
+
+
+def span(name: str, clock=None):
+    """A context for the stage ``name`` (one of :data:`STAGE_SPANS`).
+
+    While a ``torch.profiler`` records, it opens a profiler range named
+    ``name`` at function scope: the range is on the device trace's clock,
+    and the card's timeline carries no copy of it.  With ``clock`` (a
+    zero-argument callable, e.g. a server's ``now``), the returned span
+    reads it once on entry and once on exit (``.t0``, ``.t1``), inside
+    the range, whether or not a profiler records: a caller's own log of
+    the stage takes those two reads, so a stage is timed once.  With
+    neither, it returns one shared no-op context and makes no range."""
+    profiled = _profiler._is_profiler_enabled
+    if clock is None and not profiled:
+        return _OFF
+    return _Span(name, clock or time.perf_counter, profiled)
+
+
+def stage_totals() -> dict[str, tuple[float, int]]:
+    """Seconds (on each span's clock) and count of every stage span that
+    closed while a profiler recorded, over the process's life."""
+    with _totals_lock:
+        return {k: (v[0], v[1]) for k, v in _totals.items()}

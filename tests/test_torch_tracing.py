@@ -3,7 +3,8 @@ for twin with the non-socket tests of tests/test_tracing.py: the schema
 tuples, histogram percentiles, the span lifecycle, anomalies, replay
 determinism and zero observer effect.  Under a VirtualClock the two
 packages' ``FlightRecorder.dump_json()`` outputs are compared byte for
-byte."""
+byte.  The port's stage spans (``tracing.span``, which the reference does
+not have) are checked under a CPU ``torch.profiler``."""
 
 import json
 import math
@@ -11,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from _torch_helpers import Twin, demo_models, policies
 from repro.engine import FlightRecorder as RefRecorder
@@ -18,11 +20,17 @@ from repro.engine import SCENARIOS as REF_SCENARIOS
 from repro.engine import run_scenario as ref_run_scenario
 from repro.engine import tracing as ref_tracing
 
-from repro_torch.engine import (ANOMALY_KINDS, HIST_KEYS, SCENARIOS,
-                                SPAN_KINDS, FlightRecorder, Histogram,
-                                ServerMetrics, StreamServer, VirtualClock,
-                                run_batched, run_scenario, trace_count)
-from repro_torch.engine.tracing import RATIO_EDGES, TIME_EDGES
+from repro_torch.core.lif import LIFParams
+from repro_torch.engine import (ANOMALY_KINDS, HIST_KEYS, MLP_MODEL,
+                                SCENARIOS, SPAN_KINDS, FlightRecorder,
+                                Histogram, ServerMetrics, SNNTrainConfig,
+                                StreamServer, VirtualClock, run_batched,
+                                run_bucketed, run_scenario, trace_count)
+from repro_torch.engine.snn_train import make_snn_train_step
+from repro_torch.engine.tracing import (RATIO_EDGES, STAGE_SPANS, TIME_EDGES,
+                                        span, stage_totals)
+from repro_torch.engine.train_loop import init_train_state
+from repro_torch.snn.mlp import SNNConfig
 
 torch.set_num_threads(1)
 
@@ -169,8 +177,6 @@ def test_scenario_replays_byte_identical(models, name):
     rec1, rec2 = FlightRecorder(), FlightRecorder()
     _, _, m1 = run_scenario(port, SCENARIOS[name], recorder=rec1)
     _, _, m2 = run_scenario(port, SCENARIOS[name], recorder=rec2)
-    rec1.detach_jit_probe()
-    rec2.detach_jit_probe()
     assert m1 == m2 and rec1.dump_json() == rec2.dump_json()
     c = rec1.anomaly_counts
     assert c.get("deadline_miss", 0) == m1["deadline_misses"]
@@ -192,7 +198,6 @@ def test_tracer_off_is_bit_exact(models):
     sc = SCENARIOS["adversarial"]
     rec = FlightRecorder()
     res_on, rids_on, m_on = run_scenario(models[1], sc, recorder=rec)
-    rec.detach_jit_probe()
     res_off, rids_off, m_off = run_scenario(models[1], sc)
     assert m_on == m_off and rids_on == rids_off
     for rid in res_off:
@@ -214,19 +219,18 @@ def test_tracing_adds_no_new_shapes(models):
     srv.submit(_stream(seed=2))
     srv.submit(_stream(seed=3))
     srv.collect()
-    assert trace_count() == n0 and len(rec.jit_events) == 0
-    rec.detach_jit_probe()
+    assert trace_count() == n0
 
 
 def test_jit_probe_sees_new_shapes(models):
-    rec = FlightRecorder().attach_jit_probe()
-    try:
-        spikes = np.stack([_stream(t=29, seed=9 + i) for i in range(3)])
-        run_batched(models[1], spikes)
-        assert any(e["kind"] == "batched" for e in rec.jit_events)
-        assert "jit_events" not in rec.dump()
-    finally:
-        rec.detach_jit_probe()
+    """The engine's shape probe counts a first call of a new shape, and
+    only the first."""
+    spikes = np.stack([_stream(t=29, seed=9 + i) for i in range(3)])
+    n0 = trace_count()
+    run_batched(models[1], spikes)
+    assert trace_count() == n0 + 1
+    run_batched(models[1], spikes[::-1].copy())
+    assert trace_count() == n0 + 1
 
 
 # ----------------------------------------------------------- recorder edges
@@ -251,3 +255,115 @@ def test_recorder_rings_bounded_and_late_anomalies():
     assert math.isfinite(json.loads(rec.dump_json())["anomaly_counts"]
                          ["noise_disagreement"])
     assert recs[0].dump_json() == recs[1].dump_json()
+
+
+# -------------------------------------------------------------- stage spans
+
+def test_stage_spans_are_locked():
+    assert STAGE_SPANS == (
+        "server.dispatch", "serving.execute", "serving.pad", "engine.upload",
+        "engine.forward", "engine.readback", "engine.stats", "serving.record",
+        "serving.slice", "train.forward", "train.backward", "train.optimizer")
+
+
+def _stage_events(prof):
+    """``(name, start_ns, end_ns)`` of a finished CPU profile's stage
+    spans, outermost first where two start together."""
+    evs = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name() in STAGE_SPANS:
+            # function scope: the card's timeline carries no copy of it
+            assert not ev.is_user_annotation()
+            evs.append((ev.name(), ev.start_ns(),
+                        ev.start_ns() + ev.duration_ns()))
+    return sorted(evs, key=lambda e: (e[1], -e[2]))
+
+
+def _inside(evs, outer):
+    _, s, e = outer
+    return [ev for ev in evs if ev is not outer and s <= ev[1] and ev[2] <= e]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_engine_call_holds_its_stages_in_order(models, with_stats):
+    """Under a profiler, each engine call of ``run_bucketed`` is one
+    ``serving.execute`` holding each stage once, one after another in the
+    order the work runs; ``stage_totals`` counts them."""
+    _, port_pol = policies(*GRID)
+    streams = [_stream(t=t, seed=i) for i, t in enumerate((3, 7, 6, 2, 8))]
+    tel = []
+    before = stage_totals()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_bucketed(models[1], streams, policy=port_pol,
+                     with_stats=with_stats, telemetry=tel)
+    evs = _stage_events(prof)
+    calls = [ev for ev in evs if ev[0] == "serving.execute"]
+    assert len(calls) == len(tel) == 3
+    stages = ["serving.pad", "engine.upload", "engine.forward",
+              "engine.readback", *(["engine.stats"] if with_stats else []),
+              "serving.record", "serving.slice"]
+    for call in calls:
+        inner = _inside(evs, call)
+        assert [ev[0] for ev in inner] == stages
+        assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+    assert len(evs) == len(calls) * (1 + len(stages))
+    after = stage_totals()
+    for name in ("serving.execute", *stages):
+        assert after[name][1] - before.get(name, (0.0, 0))[1] == 3
+        assert after[name][0] >= before.get(name, (0.0, 0))[0]
+
+
+def test_server_dispatch_holds_the_engine_call(models):
+    _, port_pol = policies(*GRID)
+    srv = StreamServer(models[1], policy=port_pol, clock=VirtualClock(),
+                       service_model=lambda b, t: 0.001,
+                       tracer=FlightRecorder())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for seed in range(3):
+            srv.submit(_stream(seed=seed))
+        srv.flush()
+    evs = _stage_events(prof)
+    disp = [ev for ev in evs if ev[0] == "server.dispatch"]
+    assert len(disp) == len(srv.telemetry) == 2
+    for d in disp:
+        assert [ev[0] for ev in _inside(evs, d)][0] == "serving.execute"
+        assert sum(ev[0] == "serving.execute" for ev in _inside(evs, d)) == 1
+
+
+def test_train_step_holds_forward_backward_optimizer():
+    cfg = SNNConfig(layer_sizes=(16, 8, 4), lif=LIFParams(), num_steps=4)
+    opt = SNNTrainConfig(lr=1e-3).adamw()
+    step = make_snn_train_step(MLP_MODEL, cfg, opt)
+    gen = torch.Generator().manual_seed(0)
+    params = MLP_MODEL.init(gen, cfg, device="cpu")
+    state = init_train_state(None, params, opt).as_tree()
+    batch = {"spikes": (torch.rand(4, 6, 16, generator=gen) < 0.3).float(),
+             "labels": torch.arange(6) % 4}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    assert [ev[0] for ev in _stage_events(prof)] == [
+        "train.forward", "train.backward", "train.optimizer"]
+
+
+def test_span_without_a_profiler_is_the_shared_no_op():
+    off = span("engine.upload")
+    assert off is span("train.forward")
+    with off as got:
+        assert got is None
+    ticks = iter((1.0, 2.5))
+    with span("serving.pad", lambda: next(ticks)) as sp:
+        pass
+    assert (sp.t0, sp.t1) == (1.0, 2.5)
+
+
+def test_profiled_replay_dumps_the_same_bytes(models):
+    """A tracer-on VirtualClock replay under a profiler dumps the bytes of
+    the same replay without one: the stage spans share the server clock's
+    reads and add none to the trace."""
+    sc = SCENARIOS["slo_shed"]
+    plain = FlightRecorder()
+    run_scenario(models[1], sc, recorder=plain)
+    traced = FlightRecorder()
+    with profile(activities=[ProfilerActivity.CPU]):
+        run_scenario(models[1], sc, recorder=traced)
+    assert traced.dump_json() == plain.dump_json()
