@@ -22,6 +22,11 @@ content — as batched tensor code on a device:
     device input buffer, refilled with ``copy_`` on every call, so a
     serving loop over a bucket grid holds at most ``n_buckets`` input
     buffers instead of allocating one per call.
+  * On a CUDA model with ``donate`` on, each ``(B, T, max_events)`` shape's
+    forward is captured once as a CUDA graph reading that shape's input
+    buffer (:func:`_replay`), and every later call replays it: the same
+    kernels with the same arguments, issued by one host call instead of
+    ~15 torch operations and two launches a layer.
 
 Equivalence contract (tested): output spikes are **bit-identical** to the
 oracle's for every batch element, and the reported :class:`DispatchStats`
@@ -57,7 +62,7 @@ from repro_torch.core.memories import DispatchStats, stats_vectors
 from repro_torch.core.quant import check_bits, lanes_per_byte, pack_signmag
 from repro_torch.device import canonical_device, resolve_device
 from repro_torch.engine.tracing import span
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 
 # The reference's Pallas dest tile: kept for the padded widths, so that
 # n_dest_pad equals the reference's (the CUDA kernels need no padding).
@@ -124,6 +129,13 @@ class PackedModel:
     # dataclasses.replace starts a model afresh
     input_buffers: dict = dataclasses.field(default_factory=dict,
                                             init=False, repr=False)
+    # one captured forward per (B, T, max_events) shape served with donate
+    # on a card (:func:`_replay`), all in one memory pool; not init fields
+    # either
+    graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False)
+    graph_pool: tuple | None = dataclasses.field(default=None, init=False,
+                                                 repr=False)
     # this model's copies on other devices (the sharded path), one per
     # device, made on first use
     replicas: dict = dataclasses.field(default_factory=dict, init=False,
@@ -382,6 +394,99 @@ def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
     return outs
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One shape's captured forward: the graph, its static per-layer
+    outputs, what it was captured on (:func:`_operands`), and the kernel
+    launches its capture recorded, which each replay counts again."""
+
+    graph: torch.cuda.CUDAGraph
+    outs: list[torch.Tensor]
+    operands: tuple
+    launches: dict
+    by_bits: dict
+
+
+def _operands(packed: PackedModel, spikes: torch.Tensor) -> tuple:
+    """What a captured forward has baked into its kernels' arguments: the
+    input buffer's and every weight tile's address, the packed route's
+    host scale and width, and the LIF constants.  A graph captured on
+    other operands is stale."""
+    return (spikes.data_ptr(), packed.lif,
+            tuple((l.w_fused if l.w_packed is None else l.w_packed).data_ptr()
+                  for l in packed.layers),
+            tuple((l.scale_host, l.bits) for l in packed.layers))
+
+
+def _counts() -> tuple[dict, dict]:
+    return dict(_build.launches), dict(_build.packed_launches_by_bits)
+
+
+def _add_counts(launches: dict, by_bits: dict, sign: int = 1) -> None:
+    for counts, delta in ((_build.launches, launches),
+                          (_build.packed_launches_by_bits, by_bits)):
+        for k, v in delta.items():
+            counts[k] += sign * v
+
+
+def _capture(packed: PackedModel, spikes: torch.Tensor,
+             max_events: int | None, operands: tuple) -> _Graph:
+    """Capture ``_forward_impl`` on ``spikes`` as one CUDA graph, on a side
+    stream, into the model's graph pool.  Nothing runs on the card: the
+    launch counts the capture bumped are taken back, and each replay adds
+    them.
+
+    The model's graphs share one pool.  A graph's outputs stay allocated
+    while it lives, so no other capture takes them; its scratch may be
+    another graph's scratch or outputs.  That is safe because replays run
+    one at a time on the current stream and each replay's outputs are
+    copied out before the next (:func:`run_batched`)."""
+    cur = torch.cuda.current_stream(packed.device)
+    side = torch.cuda.Stream(packed.device)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    if packed.graph_pool is None:
+        packed.graph_pool = torch.cuda.graph_pool_handle()
+    before = _counts()
+    with torch.cuda.device(packed.device), torch.cuda.stream(side):
+        graph.capture_begin(pool=packed.graph_pool,
+                            capture_error_mode="thread_local")
+        try:
+            outs = _forward_impl(packed, spikes, max_events)
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    after = _counts()
+    delta = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+             for a, b in zip(after, before)]
+    _add_counts(*delta, sign=-1)
+    return _Graph(graph, outs, operands, *delta)
+
+
+def _replay(packed: PackedModel, spikes: torch.Tensor,
+            max_events: int | None) -> list[torch.Tensor]:
+    """``_forward_impl`` by replaying this shape's captured graph, whose
+    static input is ``spikes`` (the model's donated buffer, refilled by
+    :func:`_upload`).  The first call of a shape, or of a shape whose
+    operands changed, answers with an eager forward, which warms the
+    launchers, and then captures.  A replay returns the graph's static
+    outputs: the next replay overwrites them, so the caller copies them
+    out first."""
+    b, t, _ = spikes.shape
+    key = (b, t, max_events)
+    operands = _operands(packed, spikes)
+    entry = packed.graphs.get(key)
+    if entry is None or entry.operands != operands:
+        packed.graphs.pop(key, None)
+        outs = _forward_impl(packed, spikes, max_events)
+        packed.graphs[key] = _capture(packed, spikes, max_events, operands)
+        return outs
+    with span("engine.replay"):
+        entry.graph.replay()
+    _add_counts(entry.launches, entry.by_bits)
+    return entry.outs
+
+
 # ------------------------------------------------------------ batched result
 
 @dataclasses.dataclass
@@ -527,7 +632,9 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     ``with_stats=False`` skips the host-side accounting.  ``donate``
     refills the model's buffer for this ``(B, T)`` shape instead of
     allocating a new input tensor (default: on for a CUDA model, off on
-    the CPU; see :func:`should_donate`).
+    the CPU; see :func:`should_donate`); on a card it also replays the
+    shape's captured forward (:func:`_replay`), bit-identical to issuing
+    it.
     """
     if isinstance(model, PackedModel):
         packed = model
@@ -543,12 +650,16 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     b, t, _ = host.shape
     donate = should_donate(donate, packed.device)
     _note_shape(packed, b, t, max_events, donate)
-    # stage spans: the upload, the issue of every layer's kernels, and the
-    # readback, where the host waits for the card
+    # stage spans: the upload, the issue of every layer's kernels (or the
+    # replay of their graph), and the readback, where the host waits for
+    # the card
     with span("engine.upload"):
         spikes = _upload(packed, host, donate)
+    # a card's donated buffer is a static input: replay that shape's graph
+    graphed = donate and packed.device.type == "cuda" and b * t > 0
     with span("engine.forward"):
-        outs = _forward_impl(packed, spikes, max_events)
+        outs = (_replay if graphed else _forward_impl)(packed, spikes,
+                                                      max_events)
     with span("engine.readback"):
         layer_outs = [o.cpu().numpy() for o in outs]
     return _finalize(packed, host, layer_outs, max_events, sn_capacity_rows,

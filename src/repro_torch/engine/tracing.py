@@ -65,12 +65,14 @@ SPAN_KINDS = ("admit", "queue", "schedule", "pad", "dispatch", "slice",
 
 # The stage spans of the port, outermost first: the server's dispatch, the
 # front end's engine call and its stages, the engine's stages inside
-# run_batched, and the train step's.  Locked like SPAN_KINDS: the
+# run_batched (``engine.replay``, a captured forward's replay, inside
+# ``engine.forward``), and the train step's.  Locked like SPAN_KINDS: the
 # benchmark's readers key on these names.
 STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
-               "engine.upload", "engine.forward", "engine.readback",
-               "engine.stats", "serving.record", "serving.slice",
-               "train.forward", "train.backward", "train.optimizer")
+               "engine.upload", "engine.forward", "engine.replay",
+               "engine.readback", "engine.stats", "serving.record",
+               "serving.slice", "train.forward", "train.backward",
+               "train.optimizer")
 
 # Typed anomaly kinds a FlightRecorder can record; every chaos-injected
 # fault must surface as one of these.  Locked like SPAN_KINDS.

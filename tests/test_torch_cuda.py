@@ -573,6 +573,130 @@ def test_cuda_mixed_width_forward_bit_exact_and_sync_free(card, bits):
         assert res.sample_energy(i) == oracle.energy
 
 
+GRAPH_SIZES = (300, 200, 100, 40, 10)
+GRAPH_ROUTES = [(False, 8), (True, 4)]          # dense f32 tile, packed 4-bit
+
+
+def _counts():
+    return dict(_build.launches), dict(_build.packed_launches_by_bits)
+
+
+def _replayed(model, x, max_events):
+    """Every layer's output of one engine call on ``x`` through the donated
+    buffer and the shape's graph, copied off the card."""
+    spikes = br._upload(model, x, True)
+    return [o.clone() for o in br._replay(model, spikes, max_events)]
+
+
+@pytest.mark.parametrize("packed_ops,bits", GRAPH_ROUTES)
+def test_cuda_replayed_forward_equals_eager_at_every_shape(card, packed_ops,
+                                                           bits):
+    """Every shape of the default bucket grid, with a full and a finite
+    MEM_E depth: a replay of the shape's graph equals an eager forward
+    layer by layer, a second call with other spikes answers them (the
+    static input is refilled, nothing recaptured), and each replay counts
+    the launches the eager forward makes."""
+    model = _random_model(GRAPH_SIZES, bits, card, packed_ops, seed=bits)
+    rng = np.random.default_rng(30 + bits)
+    pol = BucketPolicy()
+    for max_events in (None, 24):
+        for b in pol.batch_sizes:
+            for t in pol.time_steps:
+                entry = None
+                for _ in range(2):
+                    x = (rng.random((b, t, GRAPH_SIZES[0]))
+                         < 0.1).astype(np.float32)
+                    _build.reset_launches()
+                    want = br._forward_impl(model, _t(x).to(card), max_events)
+                    eager = _counts()
+                    for _ in range(2):      # a shape's first call captures
+                        _build.reset_launches()
+                        got = _replayed(model, x, max_events)
+                        assert _counts() == eager
+                        assert [torch.equal(g, w) for g, w in
+                                zip(got, want)] == [True] * len(want), \
+                            (b, t, max_events)
+                    key = (b, t, max_events)
+                    assert entry is None or model.graphs[key] is entry
+                    entry = model.graphs[key]
+                res = br.run_batched(model, x, max_events=max_events,
+                                     with_stats=False)
+                np.testing.assert_array_equal(res.out_spikes,
+                                              want[-1].cpu().numpy())
+    assert len(model.graphs) == 2 * pol.n_buckets
+
+
+@pytest.mark.parametrize("packed_ops,bits", GRAPH_ROUTES)
+def test_cuda_run_batched_replays_under_its_span(card, packed_ops, bits):
+    """run_batched on a card replays: under a profiler each engine call
+    closes one ``engine.replay`` inside its ``engine.forward``, the launch
+    counters advance per call as an eager forward's do, and the answers
+    equal the CPU path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.tracing import stage_totals
+    model = _random_model(GRAPH_SIZES, bits, card, packed_ops, seed=5)
+    cpu = _random_model(GRAPH_SIZES, bits, "cpu", packed_ops, seed=5)
+    rng = np.random.default_rng(5)
+    xs = [(rng.random((4, 16, GRAPH_SIZES[0])) < 0.1).astype(np.float32)
+          for _ in range(3)]
+    br.run_batched(model, xs[0], with_stats=False)
+    _build.reset_launches()
+    br._forward_impl(model, _t(xs[0]).to(card), None)
+    eager = _counts()
+    before, got = stage_totals(), []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for x in xs:
+            _build.reset_launches()
+            got.append(br.run_batched(model, x, with_stats=False).out_spikes)
+            assert _counts() == eager
+    after = stage_totals()
+    for x, out in zip(xs, got):
+        np.testing.assert_array_equal(out, br.run_batched(cpu, x).out_spikes)
+    for name in ("engine.forward", "engine.replay"):
+        assert after[name][1] - before.get(name, (0.0, 0))[1] == len(xs)
+    assert list(model.graphs) == [(4, 16, None)]
+
+
+def test_cuda_twin_and_swapped_tiles_answer_with_their_own_weights(card):
+    """A ``dataclasses.replace`` d model (the noise twin) starts with no
+    graph and answers with its own weights; a model whose tile is swapped
+    recaptures instead of replaying the old one."""
+    from repro_torch.core.noise import AnalogNoise, perturb_packed
+    model = _random_model(GRAPH_SIZES, 8, card, False, seed=6)
+    rng = np.random.default_rng(6)
+    x = (rng.random((4, 8, GRAPH_SIZES[0])) < 0.2).astype(np.float32)
+    base = _replayed(model, x, None)
+    twin = perturb_packed(3, model, AnalogNoise(weight_sigma=0.3))
+    assert twin.graphs == {} and twin.input_buffers == {}
+    got = _replayed(twin, x, None)
+    want = br._forward_impl(twin, _t(x).to(card), None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not all(torch.equal(g, w) for g, w in zip(got, base))
+    assert all(torch.equal(g, w)
+               for g, w in zip(_replayed(model, x, None), base))
+    old = model.graphs[(4, 8, None)]
+    model.layers[0].w_fused = twin.layers[0].w_fused.clone()
+    got = _replayed(model, x, None)
+    assert model.graphs[(4, 8, None)] is not old
+    want = br._forward_impl(model, _t(x).to(card), None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_cuda_donate_off_never_replays(card):
+    """Without a donated buffer there is no static input: run_batched
+    issues the forward and captures nothing."""
+    model = _random_model(GRAPH_SIZES, 4, card, True, seed=7)
+    cpu = _random_model(GRAPH_SIZES, 4, "cpu", True, seed=7)
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        x = (rng.random((4, 8, GRAPH_SIZES[0])) < 0.1).astype(np.float32)
+        res = br.run_batched(model, x, donate=False)
+        np.testing.assert_array_equal(res.out_spikes,
+                                      br.run_batched(cpu, x).out_spikes)
+    assert model.graphs == {} and model.input_buffers == {}
+
+
 @pytest.mark.parametrize("n_in,n_out,t,b,p", [
     (4096, 512, 16, 8, 0.05),     # lists 4096 wide, about 200 valid
     (8192, 256, 8, 16, 0.01),     # 8192 wide, about 80 valid

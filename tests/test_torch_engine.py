@@ -200,6 +200,36 @@ def test_trace_count_counts_new_shapes_only():
     assert br.trace_count() == n0 + 3
 
 
+@pytest.mark.parametrize("donate", [None, True, False])
+def test_cpu_model_captures_no_graph(donate):
+    """Only a card's donated forward is captured as a graph: a CPU model,
+    with its buffer donated or not, keeps an empty graph cache, and its
+    answers stay the oracle's."""
+    rng = np.random.default_rng(11)
+    ref, port = map_both(pruned_mlp(rng, (12, 10, 5)), 4, 8)
+    packed = port.pack(device="cpu")
+    for t in (6, 6, 3):
+        spikes = spikes_for(rng, 3, t, 12, 0.5)
+        assert_batched_equals_oracle(
+            br.run_batched(packed, spikes, donate=donate),
+            run_batch(ref, spikes), 2)
+    assert packed.graphs == {}
+    assert len(packed.input_buffers) == (2 if donate else 0)
+
+
+def test_replaced_model_starts_without_graphs():
+    """The graph cache is no init field: ``dataclasses.replace`` (the
+    noise twin's copy) starts a model without its parent's graphs."""
+    import dataclasses
+    rng = np.random.default_rng(12)
+    _, port = map_both(pruned_mlp(rng, (8, 6)), 2, 4)
+    packed = port.pack(device="cpu")
+    packed.graphs[(1, 8, None)] = object()
+    packed.graph_pool = (0, 1)
+    twin = dataclasses.replace(packed)
+    assert twin.graphs == {} and twin.graph_pool is None
+
+
 def test_pack_is_memoised_per_device_and_route():
     rng = np.random.default_rng(9)
     _, port = map_both(pruned_mlp(rng, (8, 6)), 2, 4)

@@ -262,8 +262,9 @@ def test_recorder_rings_bounded_and_late_anomalies():
 def test_stage_spans_are_locked():
     assert STAGE_SPANS == (
         "server.dispatch", "serving.execute", "serving.pad", "engine.upload",
-        "engine.forward", "engine.readback", "engine.stats", "serving.record",
-        "serving.slice", "train.forward", "train.backward", "train.optimizer")
+        "engine.forward", "engine.replay", "engine.readback", "engine.stats",
+        "serving.record", "serving.slice", "train.forward", "train.backward",
+        "train.optimizer")
 
 
 def _stage_events(prof):
