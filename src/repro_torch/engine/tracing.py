@@ -66,13 +66,16 @@ SPAN_KINDS = ("admit", "queue", "schedule", "pad", "dispatch", "slice",
 # The stage spans of the port, outermost first: the server's dispatch, the
 # front end's engine call and its stages, the engine's stages inside
 # run_batched (``engine.replay``, a captured forward's replay, inside
-# ``engine.forward``), and the train step's.  Locked like SPAN_KINDS: the
-# benchmark's readers key on these names.
+# ``engine.forward``), the train step's, and the LM launcher's: its prefill
+# and decode steps (``launch/serve.py``), each holding the Zamba2 mixers'
+# and shared-block applications' (``models/zamba2.py``).  Locked like
+# SPAN_KINDS: the benchmark's readers key on these names.
 STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
                "engine.upload", "engine.forward", "engine.replay",
                "engine.readback", "engine.stats", "serving.record",
                "serving.slice", "train.forward", "train.backward",
-               "train.optimizer")
+               "train.optimizer", "lm.prefill", "lm.decode_step",
+               "lm.mamba", "lm.shared_block")
 
 # Typed anomaly kinds a FlightRecorder can record; every chaos-injected
 # fault must surface as one of these.  Locked like SPAN_KINDS.

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import TokenPipelineConfig, token_batch
+from repro_torch.engine.tracing import span
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ModelBundle, build_model
 from repro_torch.parallel.decode import make_sp_attention
@@ -77,20 +78,64 @@ def serve(bundle: ModelBundle, params: dict, prompts: torch.Tensor,
     shard, decode attends through :func:`make_sp_attention`.
 
     The decode loop keeps every token on the device and reads them back
-    once, after the last step.  Returns ``tokens`` [B, gen] (numpy), the
-    prefill's and the decode loop's seconds, and ``logits``, the
-    last step's logits (on the device)."""
+    once, after the last step.  On a card, without a mesh, a model whose
+    ``bundle.graph_decode()`` allows it replays its decode steps from one
+    CUDA graph (:func:`_graphed_decode`).  The prefill and each decode
+    step are the stage spans ``lm.prefill`` and ``lm.decode_step``.
+    Returns ``tokens`` [B, gen] (numpy), the prefill's and the decode
+    loop's seconds, and ``logits``, the last step's logits (on the
+    device)."""
     if mesh is None:
         if sp:
             raise ValueError("sequence-parallel decode needs a mesh")
-        return _serve(bundle, params, prompts, gen, frames, None)
+        return _serve(bundle, params, prompts, gen, frames, None,
+                      graphed=True)
     attn = (make_sp_attention(mesh) if sp and mesh.shape["model"] > 1
             else None)
     with activate(mesh, DECODE_RULES_SP if sp else DECODE_RULES):
         return _serve(bundle, params, prompts, gen, frames, attn)
 
 
-def _serve(bundle, params, prompts, gen, frames, attn) -> dict:
+def _graphed_decode(bundle, params, cache, outs, s, gen) -> torch.Tensor:
+    """The greedy decode loop with its steps replayed from one CUDA graph:
+    the first step runs eagerly (it warms the step's launchers), then one
+    step, with its argmax fed back as the next token and the position
+    advanced on the card, is captured on a side stream and replayed
+    ``gen - 2`` times.  Appends each step's tokens to ``outs``; returns
+    the last step's logits."""
+    dev = outs[0].device
+    tok = outs[0].clone()
+    pos = torch.full((), s, dtype=torch.int64, device=dev)
+
+    def step():
+        logits, _ = bundle.decode(params, cache, {"tokens": tok, "pos": pos})
+        tok.copy_(torch.argmax(logits, dim=-1))
+        pos.add_(1)
+        return logits
+
+    with span("lm.decode_step"):
+        step()
+    outs.append(tok.clone())
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            logits = step()
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    for _ in range(gen - 2):
+        with span("lm.decode_step"):
+            graph.replay()
+        outs.append(tok.clone())
+    return logits.clone()
+
+
+def _serve(bundle, params, prompts, gen, frames, attn,
+           graphed=False) -> dict:
     cfg = bundle.cfg
     dev = params["embed"].device
     b, s = prompts.shape
@@ -103,7 +148,8 @@ def _serve(bundle, params, prompts, gen, frames, attn) -> dict:
             (b, cfg.n_image_embeds, cfg.d_model), device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill(params, batch)
+    with span("lm.prefill"):
+        logits, cache = bundle.prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     spec, _ = bundle.cache_spec(b, s + gen)
@@ -112,12 +158,17 @@ def _serve(bundle, params, prompts, gen, frames, attn) -> dict:
     toks = torch.argmax(logits, dim=-1)
     outs = [toks]
     t0 = time.perf_counter()
-    kw = {} if attn is None else {"attn_impl": attn}
-    for i in range(gen - 1):
-        logits, cache = bundle.decode(params, cache,
-                                      {"tokens": toks, "pos": s + i}, **kw)
-        toks = torch.argmax(logits, dim=-1)
-        outs.append(toks)
+    if graphed and dev.type == "cuda" and gen > 2 and bundle.graph_decode():
+        logits = _graphed_decode(bundle, params, cache, outs, s, gen)
+    else:
+        kw = {} if attn is None else {"attn_impl": attn}
+        for i in range(gen - 1):
+            with span("lm.decode_step"):
+                logits, cache = bundle.decode(params, cache,
+                                              {"tokens": toks, "pos": s + i},
+                                              **kw)
+            toks = torch.argmax(logits, dim=-1)
+            outs.append(toks)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return {"tokens": torch.stack(outs, 1).cpu().numpy(),

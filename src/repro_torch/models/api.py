@@ -9,11 +9,14 @@ concrete implementation.  What the launcher and the tests need:
   bundle.prefill(params, batch)        -> (logits, cache)
   bundle.decode(params, cache, batch)  -> (logits, cache)
   bundle.cache_spec(batch, len)        -> (meta tensors, axes)
+  bundle.graph_decode()                -> may a decode step be captured
   bundle.input_specs(shape)            -> ({name: meta tensor}, axes)
 
 Every family of the registry builds: the transformer (``dense``,
-``moe``, ``vlm``), Mamba2 (``ssm``), Zamba2 (``hybrid``) and Whisper
-(``encdec``); any other family raises ``ValueError``.
+``moe``, ``vlm``), Mamba2 (``ssm``), Zamba2 (``hybrid``: the published
+layout where the config lists ``hybrid_layer_ids``, Zamba2-7B-Instruct's,
+else the JAX package's ``hybrid_period`` one) and Whisper (``encdec``);
+any other family raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ from repro_torch.models import whisper as W
 from repro_torch.models import zamba2 as Z
 
 
+def _never() -> bool:
+    return False
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ArchConfig
@@ -40,6 +47,9 @@ class ModelBundle:
     prefill: Callable
     decode: Callable
     cache_spec: Callable          # (batch, cache_len) -> (specs, axes)
+    # whether ``launch.serve`` may capture a decode step as one CUDA graph
+    # now: only where the step reads nothing back and calls no host code
+    graph_decode: Callable[[], bool] = _never
 
     def init(self, generator: torch.Generator | None = None, *,
              seed: int = 0, dtype=torch.float32, device="cuda"):
@@ -94,6 +104,7 @@ class ModelBundle:
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
     fam = cfg.family
+    graph_decode = _never
     if fam in ("dense", "moe", "vlm"):
         specs = T.transformer_specs(cfg)
 
@@ -127,6 +138,24 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
 
         def cache_spec(batch, cache_len):
             return M.mamba2_cache_spec(cfg, batch)
+
+    elif fam == "hybrid" and getattr(cfg, "hybrid_layer_ids", ()):
+        specs = Z.hybrid_specs(cfg)
+
+        def loss(params, batch):
+            return Z.hybrid_loss(params, cfg, batch)
+
+        def prefill(params, batch):
+            return Z.hybrid_prefill(params, cfg, batch["tokens"])
+
+        def decode(params, cache, batch, attn_impl=T.decode_attention):
+            return Z.hybrid_decode_step(params, cfg, cache, batch["tokens"],
+                                        batch["pos"], attn_impl)
+
+        def cache_spec(batch, cache_len):
+            return Z.hybrid_cache_spec(cfg, batch, cache_len)
+
+        graph_decode = Z.decode_capturable
 
     elif fam == "hybrid":
         specs = Z.zamba2_specs(cfg)
@@ -165,7 +194,8 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         raise ValueError(f"unknown family {fam!r}")
 
     return ModelBundle(cfg=cfg, specs=specs, loss=loss, prefill=prefill,
-                       decode=decode, cache_spec=cache_spec)
+                       decode=decode, cache_spec=cache_spec,
+                       graph_decode=graph_decode)
 
 
 def _mamba2_prefill(params, cfg: ArchConfig, tokens: torch.Tensor):

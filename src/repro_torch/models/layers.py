@@ -45,6 +45,7 @@ class P:
     axes: tuple[str | None, ...]
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float | None = None    # stddev override
+    mean: float = 0.0             # a normal leaf's mean (norm weights near 1)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -84,6 +85,8 @@ def init_params(generator: torch.Generator, specs: Any,
             a = init_std(spec) * torch.randn(
                 spec.shape, generator=generator, dtype=dtype,
                 device=generator.device)
+            if spec.mean:
+                a = a + spec.mean
             a = a.to(dev)
         out.append(a)
     return tree_unflatten(specs, out)
@@ -215,6 +218,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (g * u) @ w_down
 
 
+def geglu(gate_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The exact-GELU gated MLP's second half: ``gate_up`` [..., 2F] is
+    ``[g | u]``; returns ``(gelu(g) * u) @ w_down``, the gate's erf GELU
+    and the product in float32, rounded to ``gate_up``'s type once."""
+    g, u = gate_up.float().chunk(2, dim=-1)
+    return (F.gelu(g) * u).to(gate_up.dtype) @ w_down
+
+
 # ------------------------------------------------------- chunked flash attn
 
 def _attn_chunk(q, k, v, qpos, kpos, kvalid, window: int | None,
@@ -258,7 +269,8 @@ def _tile_masked(q0: int, q1: int, k0: int, k1: int, causal: bool,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, window: int | None = None,
                     q_chunk: int = 512, kv_chunk: int = 512,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
     """Memory-bounded attention with GQA.
 
     q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; H % KH == 0.
@@ -274,13 +286,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     With grad on, each q chunk's kv loop is rematerialised
     (:func:`checkpointed`, the JAX package's ``jax.checkpoint(one_q_chunk)``):
     the backward keeps the chunk's inputs, not its float32 score tiles.
+    ``scale`` multiplies the scores (default ``1 / sqrt(D)``).
     """
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     if h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     g = h // kh
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, sk)
     nq, nk = -(-sq // q_chunk), -(-sk // kv_chunk)

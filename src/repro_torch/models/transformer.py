@@ -298,15 +298,17 @@ def _decode_position(cfg: ArchConfig, pos, ck: torch.Tensor):
     return pos, slot
 
 
-def decode_attention(q, ck, cv, slot_pos, pos, window):
+def decode_attention(q, ck, cv, slot_pos, pos, window, scale=None):
     """q [B,H,hd]; ck/cv [B,KH,C,hd]; slot_pos [C] absolute positions, -1
     invalid.  Plain attention over the cache: scores in q's type, softmax in
-    float32, probabilities cast back."""
+    float32, probabilities cast back.  ``scale`` multiplies the scores
+    (default: they are divided by ``sqrt(hd)``)."""
     b, h, hd = q.shape
     kh = ck.shape[1]
     g = h // kh
     qr = q.reshape(b, kh, g, hd)
-    s = torch.einsum("bhgd,bhcd->bhgc", qr, ck.to(qr.dtype)) / math.sqrt(hd)
+    s = torch.einsum("bhgd,bhcd->bhgc", qr, ck.to(qr.dtype))
+    s = s / math.sqrt(hd) if scale is None else s * scale
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window is not None:
         valid &= (pos - slot_pos) < window

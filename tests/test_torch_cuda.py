@@ -1135,6 +1135,43 @@ def test_cuda_lm_decode_step_is_sync_free(card, arch):
     assert torch.isfinite(logits.float()).all()
 
 
+def test_cuda_zamba2_7b_graphed_decode_equals_eager(card, monkeypatch):
+    """``serve`` replays the published Zamba2 layout's decode steps from
+    one CUDA graph, captured afresh each call; with a block listener on
+    it decodes eagerly.  In bf16 both give the same tokens and last
+    logits bit for bit, and a second graphed call repeats them."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import build_model
+    from repro_torch.models import zamba2 as Z
+    bundle = build_model(get_smoke_config("zamba2_7b"))
+    params = bundle.init(seed=0, dtype=torch.bfloat16, device=card)
+    prompts = torch.randint(0, bundle.cfg.vocab_size, (3, 13),
+                            generator=torch.Generator().manual_seed(0))
+    prompts = prompts.to(card)
+    graphed = []
+    real = S._graphed_decode
+    monkeypatch.setattr(S, "_graphed_decode",
+                        lambda *a: graphed.append(1) or real(*a))
+    first = S.serve(bundle, params, prompts, 9)
+    again = S.serve(bundle, params, prompts, 9)
+    assert len(graphed) == 2
+
+    def listener(*_):
+        pass
+
+    Z.add_block_listener(listener)
+    try:
+        assert not bundle.graph_decode()
+        eager = S.serve(bundle, params, prompts, 9)
+    finally:
+        Z.remove_block_listener(listener)
+    assert len(graphed) == 2 and bundle.graph_decode()
+    for out in (again, eager):
+        np.testing.assert_array_equal(out["tokens"], first["tokens"])
+        assert torch.equal(out["logits"], first["logits"])
+
+
 # ---------------------------------------------- the LM on a spoofed mesh
 
 def _spoofed(shape, axes, device):

@@ -264,7 +264,8 @@ def test_stage_spans_are_locked():
         "server.dispatch", "serving.execute", "serving.pad", "engine.upload",
         "engine.forward", "engine.replay", "engine.readback", "engine.stats",
         "serving.record", "serving.slice", "train.forward", "train.backward",
-        "train.optimizer")
+        "train.optimizer", "lm.prefill", "lm.decode_step", "lm.mamba",
+        "lm.shared_block")
 
 
 def _stage_events(prof):
