@@ -17,10 +17,17 @@ content — as batched tensor code on a device:
     accumulation runs through the ``event_synapse`` kernel, and LIF over T
     is one ``lif_scan`` launch.  On the CPU each kernel is its plain
     PyTorch version.
+  * Nothing reads more of the input than ``spikes > 0``, so an engine
+    call's input travels as a uint8 mask (:func:`spike_mask`; a float
+    raster is turned into one on the host), a quarter of a float32
+    raster's bytes.  The serving front end writes its requests straight
+    into the model's staging buffer for the shape (:func:`staging`),
+    pinned when the model lives on a card, so the copy to the card does
+    not block the host.
   * ``donate`` is the port's counterpart of the reference's buffer
     donation: each ``(B, T)`` shape a model serves keeps one preallocated
-    device input buffer, refilled with ``copy_`` on every call, so a
-    serving loop over a bucket grid holds at most ``n_buckets`` input
+    uint8 device input buffer, refilled with ``copy_`` on every call, so
+    a serving loop over a bucket grid holds at most ``n_buckets`` input
     buffers instead of allocating one per call.
   * On a CUDA model with ``donate`` on, each ``(B, T, max_events)`` shape's
     forward is captured once as a CUDA graph reading that shape's input
@@ -43,6 +50,7 @@ Data layout:
   PackedModel.layers[l].rounds[r]          host geometry + stats vectors
   PackedModel.layers[l].w_fused            f32 [n_src, n_dest_pad], all rounds
   PackedModel.layers[l].w_packed           i8 [n_src, n_dest_pad*bits/8]
+  input mask (staged, donated)             u8 [B, T, n_in]
   events                                   i32 [B*T, E]   (pad = -1)
   currents                                 f32 [B, T, n_dest_pad]
 """
@@ -50,6 +58,7 @@ Data layout:
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -129,6 +138,10 @@ class PackedModel:
     # dataclasses.replace starts a model afresh
     input_buffers: dict = dataclasses.field(default_factory=dict,
                                             init=False, repr=False)
+    # one host staging buffer per (B, T) shape the front end serves
+    # (:func:`staging`); not an init field either
+    staging: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False)
     # one captured forward per (B, T, max_events) shape served with donate
     # on a card (:func:`_replay`), all in one memory pool; not init fields
     # either
@@ -351,21 +364,85 @@ def should_donate(donate: bool | None, device="cuda") -> bool:
     return torch.device(device).type == "cuda"
 
 
+def spike_mask(x) -> np.ndarray:
+    """``x > 0`` as a uint8 array, all of the input the engine reads; a
+    uint8 array as it is."""
+    x = np.asarray(x)
+    return x if x.dtype == np.uint8 else np.greater(x, 0).view(np.uint8)
+
+
+class Staging:
+    """One ``(B, T)`` shape's host staging buffer: the uint8 ``> 0`` mask
+    ``[B, T, n_in]`` that the front end writes an engine call's requests
+    into (:meth:`fill`), pinned when the model lives on a card so that
+    :func:`_upload` copies it without blocking the host.
+
+    Reuse is safe: a shape's buffer is written again only by that shape's
+    next call, which starts after this call's ``engine.readback`` has
+    synchronised the stream, and so after the copy has finished."""
+
+    __slots__ = ("mask", "steps")
+
+    def __init__(self, shape: tuple, pinned: bool):
+        self.mask = (torch.zeros(shape, dtype=torch.uint8,
+                                 pin_memory=True).numpy() if pinned
+                     else np.zeros(shape, dtype=np.uint8))
+        self.steps = [0] * shape[0]     # rows past these are zero
+
+    def fill(self, rows) -> np.ndarray:
+        """Row ``r`` of the mask is ``rows[r] > 0`` over its steps; every
+        step no row holds this call is zero.  Only what an earlier, longer
+        fill left behind is zeroed again."""
+        mask, steps = self.mask, self.steps
+        for r, x in enumerate(rows):
+            t = x.shape[0]
+            np.greater(x, 0, out=mask[r, :t])
+            if steps[r] > t:
+                mask[r, t:steps[r]] = 0
+            steps[r] = t
+        for r in range(len(rows), len(steps)):
+            if steps[r]:
+                mask[r, :steps[r]] = 0
+                steps[r] = 0
+        return mask
+
+
+def staging(packed: PackedModel, b: int, t: int) -> Staging:
+    """The model's staging buffer for the ``(b, t)`` shape, made on first
+    use: pinned on a card, plain host memory on the CPU."""
+    buf = packed.staging.get((b, t))
+    if buf is None:
+        buf = packed.staging[(b, t)] = Staging(
+            (b, t, packed.n_in), pinned=packed.device.type == "cuda")
+    return buf
+
+
+# Bytes of engine input masks put on the model's device, and how many
+# uploads carried them (one per engine call, one per shard on a mesh).
+upload_counts = {"bytes": 0, "uploads": 0}
+
+
 def _upload(packed: PackedModel, host: np.ndarray, donate: bool,
             shard: int | None = None) -> torch.Tensor:
-    """The input raster on the model's device: with ``donate`` on, copied
-    into the model's buffer for this ``(B, T)`` shape (``(shard, B, T)``
-    for a shard of the sharded path, so that two shards never share one),
-    made on first use; else a new tensor."""
-    src = torch.from_numpy(host)
+    """The input's spike mask (:func:`spike_mask`) on the model's device:
+    with ``donate`` on, copied into the model's uint8 buffer for this
+    ``(B, T)`` shape (``(shard, B, T)`` for a shard of the sharded path,
+    so that two shards never share one), made on first use; else a new
+    tensor.  The copy does not wait: from a pinned staging buffer it runs
+    behind the host on the stream, and from pageable memory CUDA has
+    taken the bytes when the call returns."""
+    mask = spike_mask(host)
+    upload_counts["bytes"] += mask.nbytes
+    upload_counts["uploads"] += 1
+    src = torch.from_numpy(mask)
     if not donate:
-        return src.to(packed.device)
-    key = host.shape[:2] if shard is None else (shard, *host.shape[:2])
+        return src.to(packed.device, non_blocking=True)
+    key = mask.shape[:2] if shard is None else (shard, *mask.shape[:2])
     buf = packed.input_buffers.get(key)
     if buf is None:
         buf = packed.input_buffers[key] = torch.empty(
-            host.shape, dtype=torch.float32, device=packed.device)
-    return buf.copy_(src)
+            mask.shape, dtype=torch.uint8, device=packed.device)
+    return buf.copy_(src, non_blocking=True)
 
 
 def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
@@ -440,7 +517,11 @@ def _capture(packed: PackedModel, spikes: torch.Tensor,
     while it lives, so no other capture takes them; its scratch may be
     another graph's scratch or outputs.  That is safe because replays run
     one at a time on the current stream and each replay's outputs are
-    copied out before the next (:func:`run_batched`)."""
+    copied out before the next (:func:`run_batched`).
+
+    The cyclic garbage collector is off while the graph captures: a
+    pinned staging buffer it freed there would record an event on the
+    stream its copy ran on, which ends the capture."""
     cur = torch.cuda.current_stream(packed.device)
     side = torch.cuda.Stream(packed.device)
     side.wait_stream(cur)
@@ -448,13 +529,19 @@ def _capture(packed: PackedModel, spikes: torch.Tensor,
     if packed.graph_pool is None:
         packed.graph_pool = torch.cuda.graph_pool_handle()
     before = _counts()
-    with torch.cuda.device(packed.device), torch.cuda.stream(side):
-        graph.capture_begin(pool=packed.graph_pool,
-                            capture_error_mode="thread_local")
-        try:
-            outs = _forward_impl(packed, spikes, max_events)
-        finally:
-            graph.capture_end()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(packed.device), torch.cuda.stream(side):
+            graph.capture_begin(pool=packed.graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                outs = _forward_impl(packed, spikes, max_events)
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     cur.wait_stream(side)
     after = _counts()
     delta = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
@@ -616,6 +703,8 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
                 device=None) -> BatchedRunResult:
     """Execute a batch of spike trains ``[B, T, n_in]`` through the chain.
 
+    ``in_spikes`` is a uint8 spike mask, taken as it is, or a raster of
+    any other dtype, of which only ``> 0`` is read (:func:`spike_mask`).
     A :class:`PackedModel` runs on its own device; a :class:`MappedModel`
     is packed onto ``device`` first (default the card — with no card, pass
     ``device="cpu"``).
@@ -644,7 +733,7 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
                              f"not {device}")
     else:
         packed = model.pack(device="cuda" if device is None else device)
-    host = np.asarray(in_spikes, dtype=np.float32)
+    host = np.asarray(in_spikes)
     if host.ndim != 3 or host.shape[2] != packed.n_in:
         raise ValueError(f"expected [B, T, {packed.n_in}], got {host.shape}")
     b, t, _ = host.shape

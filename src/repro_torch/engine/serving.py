@@ -249,10 +249,12 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
                  seq: int = 0, ts: float | None = None,
                  now=None, span_log: list | None = None
                  ) -> tuple[list[RequestResult], dict]:
-    """One engine call: zero-pad ``plan``'s requests into the plan's
-    ``(b_pad, t_pad)`` bucket, run on the packed model's device, and slice
-    each request's bit-exact result back out; ``mesh`` runs the call
-    sharded over it (:func:`~repro_torch.engine.sharded_run.run_sharded`).
+    """One engine call: stage ``plan``'s requests, zero-padded, as the
+    ``> 0`` mask of the plan's ``(b_pad, t_pad)`` bucket in the model's
+    staging buffer for it (:func:`~repro_torch.engine.batched_run
+    .staging`), run on the packed model's device, and slice each
+    request's bit-exact result back out; ``mesh`` runs the call sharded
+    over it (:func:`~repro_torch.engine.sharded_run.run_sharded`).
 
     The single execution path shared by :func:`run_bucketed` and the
     always-on :class:`~repro_torch.engine.stream_server.StreamServer`.
@@ -279,10 +281,8 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
         clock = time.monotonic if now is None else now
     with span("serving.execute"):
         with span("serving.pad", clock) as pad:
-            padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in),
-                              dtype=np.float32)
-            for row, i in enumerate(plan.indices):
-                padded[row, :streams[i].shape[0]] = streams[i]
+            padded = br.staging(packed, plan.b_pad, plan.t_pad).fill(
+                [streams[i] for i in plan.indices])
         if span_log is not None:
             span_log.append(("pad", pad.t0, pad.t1,
                              {"b_pad": plan.b_pad, "t_pad": plan.t_pad}))
@@ -303,8 +303,9 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
                 "ts": float(time.monotonic() if ts is None else ts),
                 "b_pad": plan.b_pad, "t_pad": plan.t_pad,
                 "n_requests": len(plan.indices),
-                "events": int(sum((streams[i] > 0).sum()
-                                  for i in plan.indices)),
+                "events": int(sum(
+                    np.count_nonzero(padded[row, :streams[i].shape[0]])
+                    for row, i in enumerate(plan.indices))),
                 "out_spikes": int(sum(
                     res.out_spikes[row, :streams[i].shape[0]].sum()
                     for row, i in enumerate(plan.indices))),

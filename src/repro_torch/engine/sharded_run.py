@@ -138,12 +138,12 @@ def run_sharded(model, in_spikes, *, mesh: ServeMesh | None = None,
     serving bucket policy guarantees it; see ``BucketPolicy.for_mesh``); a
     batch that does not divide runs replicated, on the mesh's first device
     alone.  A mapped model is packed onto that device.  ``donate`` refills
-    one input buffer per (shard, shape) (default: on for a CUDA mesh).
+    one uint8 input buffer per (shard, shape) (default: on for a CUDA mesh).
     """
     mesh = snn_serve_mesh() if mesh is None else mesh
     packed = (model if isinstance(model, br.PackedModel)
               else model.pack(device=mesh.devices[0]))
-    host = np.asarray(in_spikes, dtype=np.float32)
+    host = np.asarray(in_spikes)
     if host.ndim != 3 or host.shape[2] != packed.n_in:
         raise ValueError(f"expected [B, T, {packed.n_in}], got {host.shape}")
     b, t, _ = host.shape

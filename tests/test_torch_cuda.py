@@ -697,6 +697,100 @@ def test_cuda_donate_off_never_replays(card):
     assert model.graphs == {} and model.input_buffers == {}
 
 
+# (B, T) buckets in the order a serving loop might meet them: each shape
+# comes back after others have run, some with shorter requests than before
+STAGING_SHAPES = [(4, 8), (16, 16), (4, 8), (1, 32), (16, 16), (4, 8),
+                  (1, 32)]
+
+
+@pytest.mark.parametrize("packed_ops,bits", GRAPH_ROUTES)
+def test_cuda_pinned_mask_staging_equals_the_eager_float_path(card,
+                                                              packed_ops,
+                                                              bits):
+    """execute_plan over a rotating sequence of buckets: each call stages
+    its requests as a uint8 mask in the shape's pinned buffer and replays
+    the shape's graph on the uint8 donated buffer, and equals bit for bit
+    the eager forward of the zero-padded float32 raster and its record.
+    Both buffers stay put across calls of their shape."""
+    from repro_torch.engine import serving
+    model = _random_model(GRAPH_SIZES, bits, card, packed_ops, seed=11)
+    rng = np.random.default_rng(11 + bits)
+    values = np.array([-1.5, -0.25, 0, 0, 0, 0, 0, 0, 0, 0.125, 1.0, 2.5],
+                      np.float32)
+    ptrs = {}
+    for seq, (b, t) in enumerate(STAGING_SHAPES):
+        lengths = rng.integers(1, t + 1, size=int(rng.integers(1, b + 1)))
+        streams = [rng.choice(values, size=(int(n), GRAPH_SIZES[0]))
+                   for n in lengths]
+        plan = serving.BatchPlan(indices=tuple(range(len(streams))),
+                                 b_pad=b, t_pad=t)
+        got, record = serving.execute_plan(model, streams, plan, seq=seq)
+        padded = np.zeros((b, t, GRAPH_SIZES[0]), np.float32)
+        for row, x in enumerate(streams):
+            padded[row, :len(x)] = x
+        outs = br._forward_impl(model, _t(padded).to(card), None)
+        want = br._finalize(model, padded, [o.cpu().numpy() for o in outs],
+                            None, None, True)
+        for row, x in enumerate(streams):
+            np.testing.assert_array_equal(got[row].out_spikes,
+                                          want.out_spikes[row, :len(x)])
+            for a, w in zip(got[row].stats, want.sample_stats(row)):
+                np.testing.assert_array_equal(a.events, w.events[:len(x)])
+        assert record["events"] == sum(int((x > 0).sum()) for x in streams)
+        assert record["out_spikes"] == sum(
+            int(want.out_spikes[row, :len(x)].sum())
+            for row, x in enumerate(streams))
+        staged = model.staging[(b, t)].mask
+        buf = model.input_buffers[(b, t)]
+        assert _t(staged).is_pinned() and staged.dtype == np.uint8
+        assert buf.dtype == torch.uint8 and buf.device == model.device
+        assert torch.equal(buf.cpu(), _t(padded > 0).to(torch.uint8))
+        pair = (staged.ctypes.data, buf.data_ptr())
+        assert ptrs.setdefault((b, t), pair) == pair
+    shapes = sorted(set(STAGING_SHAPES))
+    assert sorted(model.input_buffers) == shapes
+    assert sorted(model.graphs) == [(b, t, None) for b, t in shapes]
+
+
+def test_cuda_capture_outlives_a_collected_staging_buffer(card, monkeypatch):
+    """A model whose pinned staging buffer carried a copy, left as cyclic
+    garbage, is not collected inside another model's capture: freeing the
+    buffer there would record an event on its copy's stream and end the
+    capture.  The capture here meets a collection's trigger mid-way."""
+    import gc
+
+    from repro_torch.engine import serving
+    rng = np.random.default_rng(12)
+    streams = [(rng.random((8, GRAPH_SIZES[0])) < 0.1).astype(np.float32)]
+    plan = serving.BatchPlan(indices=(0,), b_pad=1, t_pad=8)
+    old = _random_model(GRAPH_SIZES, 8, card, False, seed=12)
+    serving.execute_plan(old, streams, plan)
+    assert _t(old.staging[(1, 8)].mask).is_pinned()
+    old.replicas["cycle"] = old
+    garbage = [old]
+    del old
+    forward = br._forward_impl
+
+    def forward_meeting_the_collector(packed, spikes, max_events):
+        if torch.cuda.is_current_stream_capturing() and garbage:
+            garbage.clear()                 # only its own cycle holds it
+            thresholds = gc.get_threshold()
+            gc.set_threshold(1)
+            try:
+                _ = [[] for _ in range(1000)]
+            finally:
+                gc.set_threshold(*thresholds)
+        return forward(packed, spikes, max_events)
+
+    monkeypatch.setattr(br, "_forward_impl", forward_meeting_the_collector)
+    model = _random_model(GRAPH_SIZES, 8, card, False, seed=13)
+    first, _ = serving.execute_plan(model, streams, plan)   # eager, capture
+    assert not garbage and (1, 8, None) in model.graphs
+    gc.collect()
+    again, _ = serving.execute_plan(model, streams, plan)   # replay
+    np.testing.assert_array_equal(first[0].out_spikes, again[0].out_spikes)
+
+
 @pytest.mark.parametrize("n_in,n_out,t,b,p", [
     (4096, 512, 16, 8, 0.05),     # lists 4096 wide, about 200 valid
     (8192, 256, 8, 16, 0.01),     # 8192 wide, about 80 valid

@@ -230,3 +230,79 @@ def test_event_data_and_configs_match_reference():
     assert spikes.shape == (20, d.num_steps, d.n_in)
     assert set(np.unique(spikes)) <= {0.0, 1.0}
     assert sorted(labels.tolist()) == sorted(list(range(10)) * 2)
+
+
+# Calls served in turn on one model, each a list of request lengths in a
+# (4, 8) bucket: shorter than the bucket, equal to it, mixed within it,
+# and a long call before a short one on the same shape, where rows the
+# staging buffer kept from the first call would show in the second.
+STAGING_CASES = {"shorter": [[3, 5]], "equal": [[8, 8, 8, 8]],
+                 "mixed": [[8, 2, 5]], "long_then_short": [[8, 8, 8], [2]]}
+
+
+def _float_raster_plan(packed, streams, plan, max_events):
+    """An engine call as a float32 raster: the requests zero-padded into
+    the bucket, the forward on that raster, and the record's ``events``
+    counted on each request's own ``> 0``."""
+    padded = np.zeros((plan.b_pad, plan.t_pad, packed.n_in), np.float32)
+    for row, i in enumerate(plan.indices):
+        padded[row, :streams[i].shape[0]] = streams[i]
+    outs = br._forward_impl(packed, torch.from_numpy(padded), max_events)
+    res = br._finalize(packed, padded, [o.numpy() for o in outs],
+                       max_events, None, True)
+    results = [serving._slice_request(res, row, streams[i].shape[0], True)
+               for row, i in enumerate(plan.indices)]
+    record = {"events": int(sum((streams[i] > 0).sum()
+                                for i in plan.indices)),
+              "out_spikes": int(sum(res.out_spikes[row, :streams[i]
+                                                   .shape[0]].sum()
+                                    for row, i in enumerate(plan.indices)))}
+    return results, record
+
+
+@pytest.mark.parametrize("case", sorted(STAGING_CASES))
+@pytest.mark.parametrize("packed_ops,bits", [(False, 8), (True, 4)])
+def test_staged_mask_equals_the_float_raster_path(case, packed_ops, bits):
+    """execute_plan stages its requests as a uint8 ``> 0`` mask in the
+    model's staging buffer; its results and telemetry record equal, bit
+    for bit, those of the float32 raster, on streams with negative,
+    fractional and zero entries, on the dense and the packed route."""
+    from repro_torch.core.accelerator import map_model
+    from repro_torch.core.energy import AcceleratorSpec
+    from repro_torch.core.lif import LIFParams
+
+    rng = np.random.default_rng(40 + bits)
+    model = map_model(pruned_mlp(rng, (24, 20, 8), density=0.6),
+                      AcceleratorSpec("t", n_cores=2, n_engines=4, n_caps=8,
+                                      weight_mem_bytes=1 << 20),
+                      lif=LIFParams(beta=0.8, threshold=0.7),
+                      quant_bits=bits)
+    packed = model.pack(packed_ops=packed_ops, device="cpu")
+    values = np.array([-1.5, -0.25, 0, 0, 0, 0, 0, 0.125, 1.0, 2.5],
+                      np.float32)
+    for seq, lengths in enumerate(STAGING_CASES[case]):
+        streams = [rng.choice(values, size=(t, 24)) for t in lengths]
+        plan = serving.BatchPlan(indices=tuple(range(len(streams))),
+                                 b_pad=4, t_pad=8)
+        got, record = serving.execute_plan(packed, streams, plan,
+                                           max_events=9, seq=seq, ts=0.5)
+        want, want_record = _float_raster_plan(packed, streams, plan, 9)
+        mask = packed.staging[(4, 8)].mask
+        assert mask.dtype == np.uint8 and list(packed.staging) == [(4, 8)]
+        for row, s in enumerate(streams):
+            np.testing.assert_array_equal(mask[row, :len(s)], s > 0)
+        assert not mask[len(streams):].any()
+        assert not any(mask[row, len(s):].any()
+                       for row, s in enumerate(streams))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.out_spikes, w.out_spikes)
+            for a, b in zip(g.stats, w.stats):
+                assert_stats_equal(a, b)
+            for a, b in zip(g.util + g.overflow, w.util + w.overflow):
+                np.testing.assert_array_equal(a, b)
+        assert set(record) == set(serving.TELEMETRY_KEYS)
+        assert {k: record[k] for k in want_record} == want_record
+        assert (record["seq"], record["ts"], record["b_pad"],
+                record["t_pad"], record["n_requests"]) == \
+            (seq, 0.5, 4, 8, len(streams))
+        assert record["events"] > 0
