@@ -1,8 +1,10 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the one place
+the port captures a CUDA graph (:func:`capture_graph`)."""
 
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 
@@ -61,3 +63,34 @@ def device_guard(device):
     if dev.type == "cuda":
         return torch.cuda.device(dev)
     return contextlib.nullcontext()
+
+
+def capture_graph(fn, device, pool=None):
+    """Capture ``fn()`` as one CUDA graph on the card ``device``, into the
+    memory pool ``pool`` when one is given: on a side stream that first
+    waits for the current one, in ``"thread_local"`` capture mode, and
+    with the cyclic garbage collector off (a pinned host buffer freed
+    inside a capture records an event on the stream its copy ran on,
+    which ends the capture).  The current stream then waits for the side
+    stream.  Nothing runs on the card.  Returns ``(graph, fn's result)``:
+    the result's tensors are the graph's static outputs, which each
+    ``graph.replay()`` overwrites."""
+    dev = torch.device(device)
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    cur.wait_stream(side)
+    return graph, out

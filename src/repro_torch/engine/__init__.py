@@ -5,11 +5,8 @@ from repro_torch.engine.batched_run import (  # noqa: F401
     BatchedDispatchStats,
     BatchedRunResult,
     PackedModel,
-    add_trace_listener,
     pack_model,
-    remove_trace_listener,
     run_batched,
-    should_donate,
     trace_count,
 )
 from repro_torch.engine.serving import (  # noqa: F401

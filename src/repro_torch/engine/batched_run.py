@@ -24,16 +24,16 @@ content — as batched tensor code on a device:
     into the model's staging buffer for the shape (:func:`staging`),
     pinned when the model lives on a card, so the copy to the card does
     not block the host.
-  * ``donate`` is the port's counterpart of the reference's buffer
-    donation: each ``(B, T)`` shape a model serves keeps one preallocated
-    uint8 device input buffer, refilled with ``copy_`` on every call, so
-    a serving loop over a bucket grid holds at most ``n_buckets`` input
-    buffers instead of allocating one per call.
-  * On a CUDA model with ``donate`` on, each ``(B, T, max_events)`` shape's
-    forward is captured once as a CUDA graph reading that shape's input
-    buffer (:func:`_replay`), and every later call replays it: the same
-    kernels with the same arguments, issued by one host call instead of
-    ~15 torch operations and two launches a layer.
+  * The model's device decides how a call runs.  Every engine call
+    refills its shape's uint8 input buffer on the model's device, made on
+    first use: one per ``(B, T)``, or per ``(shard, B, T)`` on the sharded
+    path, so a serving loop over a bucket grid holds at most
+    ``n_buckets`` input buffers.  On a card (:func:`_on_card`, the test
+    :func:`staging` pins by too), a call with ``B*T > 0`` replays its
+    ``(B, T, max_events)`` shape's forward, captured once as a CUDA graph
+    reading that buffer (:func:`_replay`): the same kernels with the same
+    arguments, issued by one host call instead of ~15 torch operations
+    and two launches a layer.  On the CPU it runs :func:`_forward_impl`.
 
 Equivalence contract (tested): output spikes are **bit-identical** to the
 oracle's for every batch element, and the reported :class:`DispatchStats`
@@ -50,7 +50,7 @@ Data layout:
   PackedModel.layers[l].rounds[r]          host geometry + stats vectors
   PackedModel.layers[l].w_fused            f32 [n_src, n_dest_pad], all rounds
   PackedModel.layers[l].w_packed           i8 [n_src, n_dest_pad*bits/8]
-  input mask (staged, donated)             u8 [B, T, n_in]
+  input mask (staged, then on the device)  u8 [B, T, n_in]
   events                                   i32 [B*T, E]   (pad = -1)
   currents                                 f32 [B, T, n_dest_pad]
 """
@@ -58,7 +58,6 @@ Data layout:
 from __future__ import annotations
 
 import dataclasses
-import gc
 
 import numpy as np
 import torch
@@ -69,9 +68,10 @@ from repro_torch.core.energy import (FRAME_CYCLES, AcceleratorSpec,
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.memories import DispatchStats, stats_vectors
 from repro_torch.core.quant import check_bits, lanes_per_byte, pack_signmag
-from repro_torch.device import canonical_device, resolve_device
-from repro_torch.engine.tracing import span
+from repro_torch.device import (canonical_device, capture_graph,
+                                resolve_device)
 from repro_torch.kernels import _build, ops
+from repro_torch.stage_spans import span
 
 # The reference's Pallas dest tile: kept for the padded widths, so that
 # n_dest_pad equals the reference's (the CUDA kernels need no padding).
@@ -133,18 +133,17 @@ class PackedModel:
     spec: AcceleratorSpec | None = None
     block_d: int = DEFAULT_BLOCK_D
     device: torch.device = torch.device("cpu")
-    # one reusable input buffer per (B, T) shape served with donate on
-    # (per (shard, B, T) on the sharded path); not an init field, so
-    # dataclasses.replace starts a model afresh
+    # one reusable input buffer per (B, T) shape served (per (shard, B, T)
+    # on the sharded path); not an init field, so dataclasses.replace
+    # starts a model afresh
     input_buffers: dict = dataclasses.field(default_factory=dict,
                                             init=False, repr=False)
     # one host staging buffer per (B, T) shape the front end serves
     # (:func:`staging`); not an init field either
     staging: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False)
-    # one captured forward per (B, T, max_events) shape served with donate
-    # on a card (:func:`_replay`), all in one memory pool; not init fields
-    # either
+    # one captured forward per (B, T, max_events) shape served on a card
+    # (:func:`_replay`), all in one memory pool; not init fields either
     graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False)
     graph_pool: tuple | None = dataclasses.field(default=None, init=False,
@@ -303,7 +302,6 @@ def pack_model(model: MappedModel, block_d: int = DEFAULT_BLOCK_D,
 # so a same-shape hot-swap or noisy twin adds no new shapes.
 _trace_count = 0
 _seen_shapes: set = set()
-_trace_listeners: list = []
 
 
 def trace_count() -> int:
@@ -313,19 +311,6 @@ def trace_count() -> int:
     return _trace_count
 
 
-def add_trace_listener(fn) -> None:
-    """Subscribe ``fn(kind, donated)`` to new-shape events — called once per
-    shape the engine has not seen (kind ``"batched"``, or ``"sharded"``
-    on a mesh); a listener that raises is ignored."""
-    if fn not in _trace_listeners:
-        _trace_listeners.append(fn)
-
-
-def remove_trace_listener(fn) -> None:
-    if fn in _trace_listeners:
-        _trace_listeners.remove(fn)
-
-
 def _signature(packed: PackedModel) -> tuple:
     return (str(packed.device), dataclasses.astuple(packed.lif),
             tuple((l.n_src, l.n_dest_pad, l.bits, l.w_packed is not None)
@@ -333,35 +318,23 @@ def _signature(packed: PackedModel) -> tuple:
 
 
 def _note_shape(packed: PackedModel, b: int, t: int,
-                max_events: int | None, donated: bool = False,
-                mesh=None) -> None:
-    """Count a first call of this shape: kind ``"batched"``, or
-    ``"sharded"`` with the mesh's devices in the key (the reference's
-    sharded jit caches per mesh)."""
+                max_events: int | None, mesh=None) -> None:
+    """Count a first call of this shape, with the mesh's devices in the
+    key on the sharded path (the reference's sharded jit caches per
+    mesh)."""
     global _trace_count
     key = (_signature(packed), b, t, max_events)
-    kind = "batched"
     if mesh is not None:
-        kind = "sharded"
-        key = (kind, tuple(str(d) for d in mesh.devices), *key)
-    if key in _seen_shapes:
-        return
-    _seen_shapes.add(key)
-    _trace_count += 1
-    for fn in list(_trace_listeners):
-        try:
-            fn(kind, donated)
-        except Exception:
-            pass
+        key = ("sharded", tuple(str(d) for d in mesh.devices), *key)
+    if key not in _seen_shapes:
+        _seen_shapes.add(key)
+        _trace_count += 1
 
 
-def should_donate(donate: bool | None, device="cuda") -> bool:
-    """Resolve a ``donate`` tri-state for a model on ``device``: ``None``
-    means on for a CUDA model and off on the CPU, as the reference's
-    default is on off the CPU backend."""
-    if donate is not None:
-        return bool(donate)
-    return torch.device(device).type == "cuda"
+def _on_card(packed: PackedModel) -> bool:
+    """Whether the model lives on a card: then its staging buffers are
+    pinned and its calls replay graphs."""
+    return packed.device.type == "cuda"
 
 
 def spike_mask(x) -> np.ndarray:
@@ -412,8 +385,8 @@ def staging(packed: PackedModel, b: int, t: int) -> Staging:
     use: pinned on a card, plain host memory on the CPU."""
     buf = packed.staging.get((b, t))
     if buf is None:
-        buf = packed.staging[(b, t)] = Staging(
-            (b, t, packed.n_in), pinned=packed.device.type == "cuda")
+        buf = packed.staging[(b, t)] = Staging((b, t, packed.n_in),
+                                               pinned=_on_card(packed))
     return buf
 
 
@@ -422,27 +395,24 @@ def staging(packed: PackedModel, b: int, t: int) -> Staging:
 upload_counts = {"bytes": 0, "uploads": 0}
 
 
-def _upload(packed: PackedModel, host: np.ndarray, donate: bool,
+def _upload(packed: PackedModel, host: np.ndarray,
             shard: int | None = None) -> torch.Tensor:
-    """The input's spike mask (:func:`spike_mask`) on the model's device:
-    with ``donate`` on, copied into the model's uint8 buffer for this
-    ``(B, T)`` shape (``(shard, B, T)`` for a shard of the sharded path,
-    so that two shards never share one), made on first use; else a new
-    tensor.  The copy does not wait: from a pinned staging buffer it runs
-    behind the host on the stream, and from pageable memory CUDA has
-    taken the bytes when the call returns."""
+    """The input's spike mask (:func:`spike_mask`) on the model's device,
+    copied into the model's uint8 buffer for this ``(B, T)`` shape
+    (``(shard, B, T)`` for a shard of the sharded path, so that two
+    shards never share one), made on first use.  The copy does not wait:
+    from a pinned staging buffer it runs behind the host on the stream,
+    and from pageable memory CUDA has taken the bytes when the call
+    returns."""
     mask = spike_mask(host)
     upload_counts["bytes"] += mask.nbytes
     upload_counts["uploads"] += 1
-    src = torch.from_numpy(mask)
-    if not donate:
-        return src.to(packed.device, non_blocking=True)
     key = mask.shape[:2] if shard is None else (shard, *mask.shape[:2])
     buf = packed.input_buffers.get(key)
     if buf is None:
         buf = packed.input_buffers[key] = torch.empty(
             mask.shape, dtype=torch.uint8, device=packed.device)
-    return buf.copy_(src, non_blocking=True)
+    return buf.copy_(torch.from_numpy(mask), non_blocking=True)
 
 
 def _forward_impl(packed: PackedModel, spikes: torch.Tensor,
@@ -508,41 +478,22 @@ def _add_counts(launches: dict, by_bits: dict, sign: int = 1) -> None:
 
 def _capture(packed: PackedModel, spikes: torch.Tensor,
              max_events: int | None, operands: tuple) -> _Graph:
-    """Capture ``_forward_impl`` on ``spikes`` as one CUDA graph, on a side
-    stream, into the model's graph pool.  Nothing runs on the card: the
-    launch counts the capture bumped are taken back, and each replay adds
-    them.
+    """Capture ``_forward_impl`` on ``spikes`` as one CUDA graph
+    (:func:`~repro_torch.device.capture_graph`) into the model's graph
+    pool.  Nothing runs on the card: the launch counts the capture bumped
+    are taken back, and each replay adds them.
 
     The model's graphs share one pool.  A graph's outputs stay allocated
     while it lives, so no other capture takes them; its scratch may be
     another graph's scratch or outputs.  That is safe because replays run
     one at a time on the current stream and each replay's outputs are
-    copied out before the next (:func:`run_batched`).
-
-    The cyclic garbage collector is off while the graph captures: a
-    pinned staging buffer it freed there would record an event on the
-    stream its copy ran on, which ends the capture."""
-    cur = torch.cuda.current_stream(packed.device)
-    side = torch.cuda.Stream(packed.device)
-    side.wait_stream(cur)
-    graph = torch.cuda.CUDAGraph()
+    copied out before the next (:func:`run_batched`)."""
     if packed.graph_pool is None:
         packed.graph_pool = torch.cuda.graph_pool_handle()
     before = _counts()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.device(packed.device), torch.cuda.stream(side):
-            graph.capture_begin(pool=packed.graph_pool,
-                                capture_error_mode="thread_local")
-            try:
-                outs = _forward_impl(packed, spikes, max_events)
-            finally:
-                graph.capture_end()
-    finally:
-        if collecting:
-            gc.enable()
-    cur.wait_stream(side)
+    graph, outs = capture_graph(
+        lambda: _forward_impl(packed, spikes, max_events), packed.device,
+        packed.graph_pool)
     after = _counts()
     delta = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
              for a, b in zip(after, before)]
@@ -553,7 +504,7 @@ def _capture(packed: PackedModel, spikes: torch.Tensor,
 def _replay(packed: PackedModel, spikes: torch.Tensor,
             max_events: int | None) -> list[torch.Tensor]:
     """``_forward_impl`` by replaying this shape's captured graph, whose
-    static input is ``spikes`` (the model's donated buffer, refilled by
+    static input is ``spikes`` (the model's input buffer, refilled by
     :func:`_upload`).  The first call of a shape, or of a shape whose
     operands changed, answers with an eager forward, which warms the
     launchers, and then captures.  A replay returns the graph's static
@@ -699,7 +650,6 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
                 max_events: int | None = None,
                 sn_capacity_rows: int | None = None,
                 with_stats: bool = True,
-                donate: bool | None = None,
                 device=None) -> BatchedRunResult:
     """Execute a batch of spike trains ``[B, T, n_in]`` through the chain.
 
@@ -718,12 +668,9 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
 
     Degenerate shapes are valid inputs: ``B=0`` returns an empty result,
     ``T=1`` and all-silent batches follow the ordinary path.
-    ``with_stats=False`` skips the host-side accounting.  ``donate``
-    refills the model's buffer for this ``(B, T)`` shape instead of
-    allocating a new input tensor (default: on for a CUDA model, off on
-    the CPU; see :func:`should_donate`); on a card it also replays the
-    shape's captured forward (:func:`_replay`), bit-identical to issuing
-    it.
+    ``with_stats=False`` skips the host-side accounting.  On a card the
+    call replays the shape's captured forward (:func:`_replay`),
+    bit-identical to issuing it.
     """
     if isinstance(model, PackedModel):
         packed = model
@@ -737,15 +684,13 @@ def run_batched(model: MappedModel | PackedModel, in_spikes, *,
     if host.ndim != 3 or host.shape[2] != packed.n_in:
         raise ValueError(f"expected [B, T, {packed.n_in}], got {host.shape}")
     b, t, _ = host.shape
-    donate = should_donate(donate, packed.device)
-    _note_shape(packed, b, t, max_events, donate)
+    _note_shape(packed, b, t, max_events)
     # stage spans: the upload, the issue of every layer's kernels (or the
     # replay of their graph), and the readback, where the host waits for
     # the card
     with span("engine.upload"):
-        spikes = _upload(packed, host, donate)
-    # a card's donated buffer is a static input: replay that shape's graph
-    graphed = donate and packed.device.type == "cuda" and b * t > 0
+        spikes = _upload(packed, host)
+    graphed = _on_card(packed) and b * t > 0
     with span("engine.forward"):
         outs = (_replay if graphed else _forward_impl)(packed, spikes,
                                                       max_events)

@@ -36,7 +36,7 @@ from repro_torch.core.memories import DispatchStats
 from repro_torch.device import canonical_device, resolve_device
 from repro_torch.engine import batched_run as br
 from repro_torch.engine.sharded_run import run_sharded
-from repro_torch.engine.tracing import span
+from repro_torch.stage_spans import span
 
 _log = logging.getLogger(__name__)
 
@@ -245,7 +245,6 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
                  mesh=None, max_events: int | None = None,
                  sn_capacity_rows: int | None = None,
                  with_stats: bool = True,
-                 donate: bool | None = None,
                  seq: int = 0, ts: float | None = None,
                  now=None, span_log: list | None = None
                  ) -> tuple[list[RequestResult], dict]:
@@ -260,16 +259,14 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
     always-on :class:`~repro_torch.engine.stream_server.StreamServer`.
     Returns the per-request results (aligned with ``plan.indices``) and one
     ``TELEMETRY_KEYS`` record; ``seconds`` ends after the results are back
-    on the host, so it covers the device work.  ``donate`` refills the
-    bucket's input buffer (see :func:`~repro_torch.engine.batched_run
-    .run_batched`).
+    on the host, so it covers the device work.
 
     ``seq``/``ts`` stamp the record.  ``span_log``, if a list, receives
     ``(kind, t0, t1, attrs)`` tuples for the ``pad`` and ``slice`` stages
     measured on ``now`` (the caller's clock; defaults to
     ``time.monotonic``).  Under a VirtualClock these are zero-width point
     events, so traces stay replay-deterministic.  The call and its stages
-    are stage spans (:func:`~repro_torch.engine.tracing.span`):
+    are stage spans (:func:`~repro_torch.stage_spans.span`):
     ``serving.execute`` around ``serving.pad``, the engine's own,
     ``serving.record`` and ``serving.slice``; the two reads of ``now``
     that bound ``pad`` and ``slice`` in ``span_log`` are the reads of
@@ -290,12 +287,12 @@ def execute_plan(packed: "br.PackedModel", streams, plan: BatchPlan, *,
         if mesh is None:
             res = br.run_batched(packed, padded, max_events=max_events,
                                  sn_capacity_rows=sn_capacity_rows,
-                                 with_stats=with_stats, donate=donate)
+                                 with_stats=with_stats)
         else:
             res = run_sharded(packed, padded, mesh=mesh,
                               max_events=max_events,
                               sn_capacity_rows=sn_capacity_rows,
-                              with_stats=with_stats, donate=donate)
+                              with_stats=with_stats)
         dt = time.perf_counter() - t0
         with span("serving.record"):
             record = {
@@ -326,7 +323,6 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
                  with_stats: bool = True,
                  telemetry: list | None = None,
                  overlong: str = "error",
-                 donate: bool | None = None,
                  noise=None, noise_key=0,
                  device=None) -> list[RequestResult]:
     """Serve a list of variable-length spike streams (``[T_i, n_in]`` each)
@@ -399,8 +395,7 @@ def run_bucketed(model, streams, *, policy: BucketPolicy | None = None,
         reqs, record = execute_plan(packed, streams, plan, mesh=mesh,
                                     max_events=max_events,
                                     sn_capacity_rows=sn_capacity_rows,
-                                    with_stats=with_stats, donate=donate,
-                                    seq=seq)
+                                    with_stats=with_stats, seq=seq)
         if telemetry is not None:
             telemetry.append(record)
         for row, i in enumerate(plan.indices):

@@ -33,10 +33,10 @@ Serving notes:
 
   * every shard's forward is enqueued on its device before the first
     device-to-host copy, so the cards run side by side;
-  * the shared ``trace_count()`` probe counts this path too (kind
-    ``"sharded"``, keyed by the mesh's devices), and with ``donate`` on
-    each shard refills its own input buffer, keyed by shard, so two shards
-    of a spoofed mesh never share one.
+  * the shared ``trace_count()`` probe counts this path too, keyed by the
+    mesh's devices, and each shard refills its own input buffer, keyed by
+    shard, so two shards of a spoofed mesh never share one;
+  * each shard's forward is issued eagerly: no graph is replayed here.
 """
 
 from __future__ import annotations
@@ -127,8 +127,7 @@ def forward_shards(packed: "br.PackedModel", shards, devices,
 def run_sharded(model, in_spikes, *, mesh: ServeMesh | None = None,
                 max_events: int | None = None,
                 sn_capacity_rows: int | None = None,
-                with_stats: bool = True,
-                donate: bool | None = None) -> "br.BatchedRunResult":
+                with_stats: bool = True) -> "br.BatchedRunResult":
     """``run_batched`` over a device mesh: spikes ``[B, T, n_in]`` split on
     the batch axis, the model replicated, results gathered back into the
     identical :class:`BatchedRunResult` surface.
@@ -137,8 +136,7 @@ def run_sharded(model, in_spikes, *, mesh: ServeMesh | None = None,
     should be a multiple of the mesh's size for actual parallelism (the
     serving bucket policy guarantees it; see ``BucketPolicy.for_mesh``); a
     batch that does not divide runs replicated, on the mesh's first device
-    alone.  A mapped model is packed onto that device.  ``donate`` refills
-    one uint8 input buffer per (shard, shape) (default: on for a CUDA mesh).
+    alone.  A mapped model is packed onto that device.
     """
     mesh = snn_serve_mesh() if mesh is None else mesh
     packed = (model if isinstance(model, br.PackedModel)
@@ -153,16 +151,14 @@ def run_sharded(model, in_spikes, *, mesh: ServeMesh | None = None,
                               sn_capacity_rows=sn_capacity_rows,
                               with_stats=with_stats)
     n = n_batch_shards(mesh, b)
-    donate = br.should_donate(donate, mesh.devices[0])
-    br._note_shape(packed, b, t, max_events, donate, mesh=mesh)
+    br._note_shape(packed, b, t, max_events, mesh=mesh)
     size = b // n
     devices = mesh.devices[:n]
     shards = []
     for s, dev in enumerate(devices):
         with device_guard(dev):
             shards.append(br._upload(packed.replica(dev),
-                                     host[s * size:(s + 1) * size], donate,
-                                     shard=s))
+                                     host[s * size:(s + 1) * size], shard=s))
     outs = forward_shards(packed, shards, devices, max_events)
     # every shard is enqueued before the first copy back
     layer_outs = [np.concatenate([o[li].cpu().numpy() for o in outs])

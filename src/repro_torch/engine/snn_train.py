@@ -58,12 +58,12 @@ from repro_torch.device import (canonical_device, device_guard, exact_float32,
                                 resolve_device)
 from repro_torch.engine.sharded_run import (ServeMesh, n_batch_shards,
                                             snn_serve_mesh)
-from repro_torch.engine.tracing import span
 from repro_torch.engine.train_loop import (TrainLoopConfig, init_train_state,
                                            resume_or_init, train_loop)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.snn import conv as _conv
 from repro_torch.snn import mlp as _mlp
+from repro_torch.stage_spans import span
 
 _log = logging.getLogger(__name__)
 

@@ -41,7 +41,7 @@ front end for that stream:
     ``tests/test_torch_stream_server.py``, ``tests/test_torch_registry.py``).
     The engine's shapes stay bounded by the sum of per-tenant
     ``policy.n_buckets`` by construction (same-shape hot-swaps add none),
-    and with ``donate`` on so do its input buffers: one per bucket.
+    and so do its input buffers: one per bucket.
   * **Metrics.**  :class:`ServerMetrics` tracks queue depth,
     time-to-first-dispatch, end-to-end latency percentiles, deadline-miss
     rate, bucket fill ratio, and a per-model sub-table
@@ -83,8 +83,8 @@ from repro_torch.engine.registry import (DEFAULT_MODEL, ModelEntry,  # noqa: F40
 from repro_torch.engine.serving import (BatchPlan, BucketPolicy,
                                         RequestResult, execute_plan)
 from repro_torch.engine.sharded_run import DeviceLossError, shrink_mesh
-from repro_torch.engine.tracing import (TIME_EDGES, FlightRecorder,
-                                        Histogram, span)
+from repro_torch.engine.tracing import TIME_EDGES, FlightRecorder, Histogram
+from repro_torch.stage_spans import span
 
 _log = logging.getLogger(__name__)
 
@@ -385,7 +385,6 @@ class StreamServer:
                  max_events: int | None = None,
                  sn_capacity_rows: int | None = None,
                  with_stats: bool = False,
-                 donate: bool | None = None,
                  noise=None, noise_key=0, noise_probe_every: int = 8,
                  slo: SLOPolicy | None = None,
                  chaos_hook=None, on_rejection=None, on_completion=None,
@@ -437,14 +436,6 @@ class StreamServer:
         self.max_events = max_events
         self.sn_capacity_rows = sn_capacity_rows
         self.with_stats = with_stats
-        # each dispatch uploads one padded bucket; with donate on it is
-        # copied into that bucket's preallocated device buffer, so an
-        # always-on server holds at most n_buckets input buffers per model
-        # instead of allocating one per dispatch.  Default: on for a CUDA
-        # model, off on the CPU.
-        self.donate = br.should_donate(
-            donate, mesh.devices[0] if mesh is not None
-            else self.registry.get().packed.device)
         # on_rejection(Rejection) fires synchronously for every rejection
         # as it happens — the delivery channel for transports that must
         # answer displaced clients.
@@ -856,8 +847,8 @@ class StreamServer:
             packed, streams, plan,
             mesh=self.mesh, max_events=self.max_events,
             sn_capacity_rows=self.sn_capacity_rows,
-            with_stats=self.with_stats, donate=self.donate,
-            seq=seq, ts=ts, now=self.now, span_log=span_log)
+            with_stats=self.with_stats, seq=seq, ts=ts, now=self.now,
+            span_log=span_log)
 
     def _noise_probe(self, entry: ModelEntry, reqs, results, streams,
                      plan: BatchPlan) -> None:

@@ -29,12 +29,8 @@ measured per-stage breakdowns, not end-to-end averages):
     these, so long soaks never silently forget the tail the way the
     bounded ``METRICS_WINDOW`` deque does; the windowed values survive
     under explicit ``recent_*`` keys.
-  * :func:`span` — a stage span inside the port's front end, engine,
-    server and train step (:data:`STAGE_SPANS`).  While a
-    ``torch.profiler`` records, it opens a profiler range, so the stage
-    sits on the device trace's clock and names the host's share of every
-    idle gap of the card, and :func:`stage_totals` sums it; otherwise it
-    costs one flag read.
+  * :data:`STAGE_SPANS`, :func:`span` and :func:`stage_totals` live in
+    :mod:`repro_torch.stage_spans` and are bound here too.
 
 Determinism contract (tested, ``tests/test_torch_tracing.py``): two
 ``run_scenario`` replays of the same scenario yield byte-identical
@@ -47,35 +43,19 @@ from __future__ import annotations
 
 import bisect
 import collections
-import contextlib
 import dataclasses
 import json
 import math
-import threading
-import time
 
-from torch._C._profiler import _RecordFunctionFast
-from torch.autograd import profiler as _profiler
+# bound here too: the benchmark's readers read them from this module
+from repro_torch.stage_spans import (STAGE_SPANS, span,  # noqa: F401
+                                     stage_totals)
 
 # The span taxonomy, in request-lifecycle order: the reference's tuple
 # (tests/test_torch_tracing.py locks it) — dashboards parsing dumps key on
 # these.
 SPAN_KINDS = ("admit", "queue", "schedule", "pad", "dispatch", "slice",
               "hw", "complete")
-
-# The stage spans of the port, outermost first: the server's dispatch, the
-# front end's engine call and its stages, the engine's stages inside
-# run_batched (``engine.replay``, a captured forward's replay, inside
-# ``engine.forward``), the train step's, and the LM launcher's: its prefill
-# and decode steps (``launch/serve.py``), each holding the Zamba2 mixers'
-# and shared-block applications' (``models/zamba2.py``).  Locked like
-# SPAN_KINDS: the benchmark's readers key on these names.
-STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
-               "engine.upload", "engine.forward", "engine.replay",
-               "engine.readback", "engine.stats", "serving.record",
-               "serving.slice", "train.forward", "train.backward",
-               "train.optimizer", "lm.prefill", "lm.decode_step",
-               "lm.mamba", "lm.shared_block")
 
 # Typed anomaly kinds a FlightRecorder can record; every chaos-injected
 # fault must surface as one of these.  Locked like SPAN_KINDS.
@@ -340,60 +320,3 @@ class FlightRecorder:
         """Sorted-keys JSON of :meth:`dump` — the byte-comparable form the
         determinism tests compare."""
         return json.dumps(self.dump(), sort_keys=True)
-
-
-# ------------------------------------------------------------ stage spans
-
-_OFF = contextlib.nullcontext()
-_totals_lock = threading.Lock()
-_totals: dict[str, list] = {}
-
-
-class _Span:
-    """One stage span: a profiler range while a profiler records, inside
-    which ``clock`` is read on entry (``t0``) and exit (``t1``)."""
-
-    __slots__ = ("name", "clock", "range", "t0", "t1")
-
-    def __init__(self, name: str, clock, profiled: bool):
-        self.name, self.clock = name, clock
-        self.range = _RecordFunctionFast(name) if profiled else None
-
-    def __enter__(self) -> "_Span":
-        if self.range is not None:
-            self.range.__enter__()
-        self.t0 = self.clock()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.t1 = self.clock()
-        if self.range is not None:
-            self.range.__exit__(*exc)
-            with _totals_lock:
-                tot = _totals.setdefault(self.name, [0.0, 0])
-                tot[0] += self.t1 - self.t0
-                tot[1] += 1
-
-
-def span(name: str, clock=None):
-    """A context for the stage ``name`` (one of :data:`STAGE_SPANS`).
-
-    While a ``torch.profiler`` records, it opens a profiler range named
-    ``name`` at function scope: the range is on the device trace's clock,
-    and the card's timeline carries no copy of it.  With ``clock`` (a
-    zero-argument callable, e.g. a server's ``now``), the returned span
-    reads it once on entry and once on exit (``.t0``, ``.t1``), inside
-    the range, whether or not a profiler records: a caller's own log of
-    the stage takes those two reads, so a stage is timed once.  With
-    neither, it returns one shared no-op context and makes no range."""
-    profiled = _profiler._is_profiler_enabled
-    if clock is None and not profiled:
-        return _OFF
-    return _Span(name, clock or time.perf_counter, profiled)
-
-
-def stage_totals() -> dict[str, tuple[float, int]]:
-    """Seconds (on each span's clock) and count of every stage span that
-    closed while a profiler recorded, over the process's life."""
-    with _totals_lock:
-        return {k: (v[0], v[1]) for k, v in _totals.items()}

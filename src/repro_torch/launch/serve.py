@@ -25,13 +25,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import TokenPipelineConfig, token_batch
-from repro_torch.engine.tracing import span
+from repro_torch.device import capture_graph
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ModelBundle, build_model
 from repro_torch.parallel.decode import make_sp_attention
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.parallel.sharding import (DECODE_RULES, DECODE_RULES_SP,
                                            activate)
+from repro_torch.stage_spans import span
 
 
 def _sync(device: torch.device) -> None:
@@ -100,8 +101,9 @@ def _graphed_decode(bundle, params, cache, outs, s, gen) -> torch.Tensor:
     """The greedy decode loop with its steps replayed from one CUDA graph:
     the first step runs eagerly (it warms the step's launchers), then one
     step, with its argmax fed back as the next token and the position
-    advanced on the card, is captured on a side stream and replayed
-    ``gen - 2`` times.  Appends each step's tokens to ``outs``; returns
+    advanced on the card, is captured
+    (:func:`~repro_torch.device.capture_graph`) and replayed ``gen - 2``
+    times.  Appends each step's tokens to ``outs``; returns
     the last step's logits."""
     dev = outs[0].device
     tok = outs[0].clone()
@@ -116,17 +118,7 @@ def _graphed_decode(bundle, params, cache, outs, s, gen) -> torch.Tensor:
     with span("lm.decode_step"):
         step()
     outs.append(tok.clone())
-    cur = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(cur)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(dev), torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            logits = step()
-        finally:
-            graph.capture_end()
-    cur.wait_stream(side)
+    graph, logits = capture_graph(step, dev)
     for _ in range(gen - 2):
         with span("lm.decode_step"):
             graph.replay()

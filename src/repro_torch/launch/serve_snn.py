@@ -6,7 +6,7 @@ async.
       --requests 48 [--device cuda|cpu] [--data 2] [--spoof-devices 2] \
       [--smoke] \
       [--arrivals poisson|bursty|diurnal|adversarial --rate 200 --slack 0.25] \
-      [--noise-sigma 0.05] [--donate auto|on|off] [--scenario NAME|all]
+      [--noise-sigma 0.05] [--scenario NAME|all]
 
 Requests are variable-length spike trains; the front end
 (:mod:`repro_torch.engine.serving`) pads them into the policy's fixed
@@ -32,12 +32,12 @@ closed-list ``run_bucketed`` pass to the always-on loop
 :class:`StreamServer` on a virtual clock, with per-request deadlines
 (``--slack``) forcing partial bucket dispatches and a bounded arrival queue
 applying backpressure.  ``--noise-sigma`` serves through a deterministic
-noisy device instance (accuracy-under-noise shadow probes), ``--donate``
-refills one input buffer per bucket, and ``--scenario NAME|all`` replays
-named chaos scripts from :data:`repro_torch.engine.chaos.SCENARIOS`
-instead (those that script device loss need a mesh of 2 or more devices
-and are skipped without one).
-"""
+noisy device instance (accuracy-under-noise shadow probes), and
+``--scenario NAME|all`` replays named chaos scripts from
+:data:`repro_torch.engine.chaos.SCENARIOS` instead (those that script
+device loss need a mesh of 2 or more devices and are skipped without
+one).  On a card every bucket refills one input buffer and replays its
+CUDA graph (:mod:`repro_torch.engine.batched_run`)."""
 
 from __future__ import annotations
 
@@ -100,8 +100,8 @@ def synth_requests(n: int, n_in: int, *, t_lo: int = 4, t_hi: int = 30,
 def serve_async(model, trace, *, policy: BucketPolicy, mesh=None,
                 queue_capacity: int = 256, backpressure: str = "reject",
                 service_model=None, max_events: int | None = None,
-                with_stats: bool = False, donate: bool | None = None,
-                noise=None, noise_key=0, tracer=None):
+                with_stats: bool = False, noise=None, noise_key=0,
+                tracer=None):
     """One async serving pass over an arrival trace (virtual clock);
     returns ``(results, rids, metrics)``.  ``metrics`` is the
     ``ServerMetrics`` snapshot plus the trajectory numbers: offered load,
@@ -115,8 +115,7 @@ def serve_async(model, trace, *, policy: BucketPolicy, mesh=None,
                           backpressure=backpressure,
                           service_model=service_model,
                           max_events=max_events, with_stats=with_stats,
-                          donate=donate, noise=noise, noise_key=noise_key,
-                          tracer=tracer)
+                          noise=noise, noise_key=noise_key, tracer=tracer)
     n0 = trace_count()
     t0 = time.perf_counter()
     results, rids = serve_trace(server, trace)
@@ -202,11 +201,7 @@ def main(argv=None):
                     help="per-request deadline slack, seconds after arrival")
     ap.add_argument("--queue-capacity", type=int, default=256,
                     help="async arrival-queue bound (backpressure kicks in)")
-    ap.add_argument("--donate", default="auto", choices=["auto", "on", "off"],
-                    help="refill one preallocated input buffer per bucket "
-                         "(auto: on for the card, off on the CPU)")
     args = ap.parse_args(argv)
-    donate = None if args.donate == "auto" else args.donate == "on"
     mesh = None
     if args.data is not None or args.spoof_devices is not None:
         mesh = snn_serve_mesh(args.data, device=args.device,
@@ -261,7 +256,7 @@ def main(argv=None):
             kw = dict(policy=policy, mesh=mesh,
                       queue_capacity=args.queue_capacity,
                       service_model=svc, max_events=args.max_events,
-                      donate=donate, noise=noise)
+                      noise=noise)
             serve_async(packed, trace, **kw)
             results, rids, m = serve_async(packed, trace, **kw)
             if m["new_traces"]:

@@ -34,7 +34,6 @@ import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.core.pytree import tree_map
-from repro_torch.engine.tracing import span
 from repro_torch.models.layers import (P, bf16_layers, checkpointed,
                                        cross_entropy, embed_rows,
                                        flash_attention, geglu, init_params,
@@ -49,6 +48,7 @@ from repro_torch.models.mamba2 import (_embed, mamba2_block,
 from repro_torch.models.transformer import (_cache_positions,
                                             _decode_position,
                                             decode_attention)
+from repro_torch.stage_spans import span
 
 
 def _outer(cfg: ArchConfig) -> tuple[int, int]:

@@ -479,7 +479,6 @@ def test_cuda_stream_server_matches_cpu_path(card):
         _build.reset_launches()
         results, rids = serve_trace(server, trace)
         if device == card:
-            assert server.donate
             assert _build.launches["event_synapse"] > 0
             assert 0 < len(model.input_buffers) <= policy.n_buckets
         served[str(device)] = (results, rids, server.metrics.snapshot(),
@@ -582,9 +581,9 @@ def _counts():
 
 
 def _replayed(model, x, max_events):
-    """Every layer's output of one engine call on ``x`` through the donated
-    buffer and the shape's graph, copied off the card."""
-    spikes = br._upload(model, x, True)
+    """Every layer's output of one engine call on ``x`` through the shape's
+    input buffer and graph, copied off the card."""
+    spikes = br._upload(model, x)
     return [o.clone() for o in br._replay(model, spikes, max_events)]
 
 
@@ -683,20 +682,6 @@ def test_cuda_twin_and_swapped_tiles_answer_with_their_own_weights(card):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_cuda_donate_off_never_replays(card):
-    """Without a donated buffer there is no static input: run_batched
-    issues the forward and captures nothing."""
-    model = _random_model(GRAPH_SIZES, 4, card, True, seed=7)
-    cpu = _random_model(GRAPH_SIZES, 4, "cpu", True, seed=7)
-    rng = np.random.default_rng(7)
-    for _ in range(2):
-        x = (rng.random((4, 8, GRAPH_SIZES[0])) < 0.1).astype(np.float32)
-        res = br.run_batched(model, x, donate=False)
-        np.testing.assert_array_equal(res.out_spikes,
-                                      br.run_batched(cpu, x).out_spikes)
-    assert model.graphs == {} and model.input_buffers == {}
-
-
 # (B, T) buckets in the order a serving loop might meet them: each shape
 # comes back after others have run, some with shorter requests than before
 STAGING_SHAPES = [(4, 8), (16, 16), (4, 8), (1, 32), (16, 16), (4, 8),
@@ -709,7 +694,7 @@ def test_cuda_pinned_mask_staging_equals_the_eager_float_path(card,
                                                               bits):
     """execute_plan over a rotating sequence of buckets: each call stages
     its requests as a uint8 mask in the shape's pinned buffer and replays
-    the shape's graph on the uint8 donated buffer, and equals bit for bit
+    the shape's graph on its uint8 input buffer, and equals bit for bit
     the eager forward of the zero-padded float32 raster and its record.
     Both buffers stay put across calls of their shape."""
     from repro_torch.engine import serving

@@ -109,3 +109,23 @@ def test_sweep_and_example_twins_import_neither_jax_nor_reference():
                        timeout=300)
     assert p.returncode == 0, p.stderr[-4000:]
     assert json.loads(p.stdout.strip().splitlines()[-1]) == []
+
+
+_LM_ALONE = r"""
+import json, sys
+import repro_torch.models, repro_torch.launch.serve
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith("repro_torch.engine"))))
+"""
+
+
+def test_lm_path_loads_no_engine_module():
+    """The LM models and their launcher mark their stages through the
+    leaf ``repro_torch.stage_spans``: importing them loads no module of
+    the SNN serving fabric (``repro_torch.engine``)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    p = subprocess.run([sys.executable, "-c", _LM_ALONE],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == []

@@ -148,24 +148,18 @@ def test_batch_spec_rules():
 
 
 def test_sharded_trace_count_shared_probe():
-    """run_sharded bumps the same trace_count() probe as run_batched, with
-    kind "sharded", and a repeated shape does not count again."""
+    """run_sharded bumps the same trace_count() probe as run_batched: a
+    sharded shape counts once, a repeat of it not again, and the same
+    shape through run_batched once more."""
     _, packed, spikes = build_both(DENSE_CASE)
-    kinds = []
-
-    def listen(kind, donated):
-        kinds.append(kind)
-
-    br.add_trace_listener(listen)
-    try:
-        m = mesh(2)
-        run_sharded(packed, spikes, mesh=m, max_events=5)
-        n = br.trace_count()
-        run_sharded(packed, spikes, mesh=m, max_events=5)
-        assert br.trace_count() == n
-    finally:
-        br.remove_trace_listener(listen)
-    assert kinds == ["sharded"]
+    m = mesh(2)
+    n0 = br.trace_count()
+    run_sharded(packed, spikes, mesh=m, max_events=5)
+    assert br.trace_count() == n0 + 1
+    run_sharded(packed, spikes, mesh=m, max_events=5)
+    assert br.trace_count() == n0 + 1
+    br.run_batched(packed, spikes, max_events=5)
+    assert br.trace_count() == n0 + 2
 
 
 @settings(max_examples=25, deadline=None)
@@ -205,17 +199,17 @@ def test_sharded_8dev_nondivisible_graceful():
 
 
 def test_spoofed_shards_keep_their_own_input_buffers():
-    """With donate on, each shard of a spoofed mesh refills its own buffer
-    (keyed by shard), never one another's; a lost device's shards drop
-    theirs."""
+    """Each shard of a spoofed mesh refills its own input buffer (keyed by
+    shard), never one another's; a lost device's shards drop theirs, and
+    the unsharded call's ``(B, T)`` buffer stays."""
     _, packed, spikes = build_both(dict(DENSE_CASE, batch=8))
-    a = run_sharded(packed, spikes, mesh=mesh(4), donate=True)
+    a = run_sharded(packed, spikes, mesh=mesh(4))
     assert sorted(packed.input_buffers) == [(s, 2, 6) for s in range(4)]
     bufs = [packed.input_buffers[(s, 2, 6)] for s in range(4)]
     assert len({b.data_ptr() for b in bufs}) == 4
     assert_results_equal(a, br.run_batched(packed, spikes))
     packed.drop_devices(mesh(2).devices, 2)
-    assert sorted(packed.input_buffers) == [(0, 2, 6), (1, 2, 6)]
+    assert sorted(packed.input_buffers) == [(0, 2, 6), (1, 2, 6), (8, 6)]
 
 
 def test_mesh_constructors_refuse_what_is_not_there():

@@ -25,9 +25,7 @@ from repro.engine import run_bucketed as ref_run_bucketed
 
 from repro_torch.engine import (METRIC_KEYS, PER_MODEL_KEYS, BucketPolicy,
                                 StreamServer, VirtualClock, WallClock,
-                                run_bucketed, serve_trace, should_donate,
-                                trace_count)
-from repro_torch.engine import serving as serving_mod
+                                run_bucketed, serve_trace, trace_count)
 
 torch.set_num_threads(1)
 
@@ -322,60 +320,26 @@ def test_wallclock_live_smoke(rng, models):
     assert all(lat >= 0.005 for lat in server.metrics.latency_s)
 
 
-def test_donate_default_device_aware(models):
-    """``donate=None`` resolves off for a CPU model and on for a CUDA one;
-    an explicit value wins."""
-    server = StreamServer(models[1], policy=_policy(), clock=VirtualClock())
-    assert server.donate is False
-    assert StreamServer(models[1], policy=_policy(), clock=VirtualClock(),
-                        donate=True).donate is True
-    assert should_donate(None, "cuda") is True
-    assert should_donate(None, "cpu") is False
-    assert should_donate(False, "cuda") is False
-
-
-def test_donate_plumbs_through_dispatch(rng, models, monkeypatch):
-    seen = []
-    real = serving_mod.br.run_batched
-
-    def spy(model, padded, **kw):
-        seen.append(kw["donate"])
-        return real(model, padded, **kw)
-
-    monkeypatch.setattr(serving_mod.br, "run_batched", spy)
-    server = StreamServer(models[1], policy=_policy(), clock=VirtualClock(),
-                          donate=True)
-    for s in _streams(rng, [3, 5, 6]):
-        server.submit(s)
-    server.flush()
-    assert seen and all(d is True for d in seen)
-
-
 def test_hot_dispatches_reuse_one_input_buffer(rng):
-    """With donate on, back-to-back dispatches of one bucket refill the
-    same input buffer: one buffer, one storage, however many dispatches —
-    and the results are those of a server that allocates per call."""
+    """Back-to-back dispatches of one bucket refill the same input buffer:
+    one buffer, one storage, however many dispatches — and the results
+    are those of ``run_bucketed`` on a fresh model."""
     from repro_torch.launch.serve_snn import build_demo_model
     packed = build_demo_model("mlp", smoke=True).pack(device="cpu")
     plain = build_demo_model("mlp", smoke=True).pack(device="cpu")
     policy = BucketPolicy(batch_sizes=(2,), time_steps=(8,))
-    server = StreamServer(packed, policy=policy, clock=VirtualClock(),
-                          donate=True)
-    other = StreamServer(plain, policy=policy, clock=VirtualClock(),
-                         donate=False)
+    server = StreamServer(packed, policy=policy, clock=VirtualClock())
     ptrs = set()
     for _ in range(5):
         streams = _streams(rng, [5, 6])
-        for s in streams:
-            server.submit(s)
-            other.submit(s)
-        got, want = server.collect(), other.collect()
-        assert len(got) == 2
-        for (_, a), (_, b) in zip(got, want):
-            np.testing.assert_array_equal(a.out_spikes, b.out_spikes)
+        rids = [server.submit(s) for s in streams]
+        got = dict(server.collect())
+        want = run_bucketed(plain, streams, policy=policy, with_stats=False)
+        assert sorted(got) == sorted(rids)
+        for rid, b in zip(rids, want):
+            np.testing.assert_array_equal(got[rid].out_spikes, b.out_spikes)
         ptrs.add(packed.input_buffers[(2, 8)].data_ptr())
     assert list(packed.input_buffers) == [(2, 8)] and len(ptrs) == 1
-    assert plain.input_buffers == {}
 
 
 def test_mesh_recovery_rerounds_every_tenant_and_clears_estimates(rng,

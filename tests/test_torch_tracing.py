@@ -3,8 +3,8 @@ for twin with the non-socket tests of tests/test_tracing.py: the schema
 tuples, histogram percentiles, the span lifecycle, anomalies, replay
 determinism and zero observer effect.  Under a VirtualClock the two
 packages' ``FlightRecorder.dump_json()`` outputs are compared byte for
-byte.  The port's stage spans (``tracing.span``, which the reference does
-not have) are checked under a CPU ``torch.profiler``."""
+byte.  The port's stage spans (``stage_spans.span``, which the reference
+does not have) are checked under a CPU ``torch.profiler``."""
 
 import json
 import math
@@ -27,10 +27,10 @@ from repro_torch.engine import (ANOMALY_KINDS, HIST_KEYS, MLP_MODEL,
                                 StreamServer, VirtualClock, run_batched,
                                 run_bucketed, run_scenario, trace_count)
 from repro_torch.engine.snn_train import make_snn_train_step
-from repro_torch.engine.tracing import (RATIO_EDGES, STAGE_SPANS, TIME_EDGES,
-                                        span, stage_totals)
+from repro_torch.engine.tracing import RATIO_EDGES, TIME_EDGES
 from repro_torch.engine.train_loop import init_train_state
 from repro_torch.snn.mlp import SNNConfig
+from repro_torch.stage_spans import STAGE_SPANS, span, stage_totals
 
 torch.set_num_threads(1)
 
@@ -258,6 +258,15 @@ def test_recorder_rings_bounded_and_late_anomalies():
 
 
 # -------------------------------------------------------------- stage spans
+
+def test_tracing_binds_the_stage_spans_module_objects():
+    """``engine.tracing`` binds the very objects of the leaf module, so
+    the benchmark's readers, which read them there, see every span."""
+    from repro_torch import stage_spans
+    from repro_torch.engine import tracing
+    for name in ("STAGE_SPANS", "span", "stage_totals"):
+        assert getattr(tracing, name) is getattr(stage_spans, name), name
+
 
 def test_stage_spans_are_locked():
     assert STAGE_SPANS == (
