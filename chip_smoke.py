@@ -16,6 +16,9 @@ Phases, one line each:
                the int8-weight C2C-ladder MAC that no serving path runs, at
                the reference benchmark's shape and as a dense input layer
                of the model
+               and ssd_scan, the Zamba2-7B prefill's grouped SSD scan, at
+               one mixer's shape of the chat cell against its plain
+               version, with both device times beside its float32 bound
      event_lists  both event_synapse routes on event lists with interior
                -1s, against their plain versions, and an unsorted row
                refused
@@ -148,7 +151,13 @@ Phases, one line each:
                sensitivity: random SSM weights amplify rounding about
                1.2x a layer); a decode step under
                set_sync_debug_mode("error"); the card against the CPU at
-               2 / 6 / 2 + 2 layers (Zamba2 block by block)
+               2 / 6 / 2 + 2 layers (Zamba2 block by block); the plain
+               SSD scans each ran on the card (``ssd_scan_plain_on_card``)
+ 12b. lm_zamba2_7b  the published Zamba2-7B layout at full width cut to
+               two mixers with a shared block between, served in bf16 at
+               the chat cell's 16 x 2048 prompts: the counted call's
+               prefill launches ``ssd_scan`` once per mixer and no other
+               kernel, and no plain scan runs on the card
  13. lm_mesh   the LM stack's parallel pieces on one-process meshes,
                spoofed on the one card (real where the host has enough
                cards; each line's ``mesh:`` says which),
@@ -776,6 +785,74 @@ def phase_c2c(w1: np.ndarray, x: torch.Tensor) -> dict:
             max_abs_err=r["max_abs_err"], max_tol=tol.max().item())
         row = r
     return row
+
+
+SSD_SHAPE = (16, 2048, 112, 64, 64, 2)  # zamba2_7b.chat, one mixer's scan
+SSD_CHUNK = 256                         # the config's chunk
+SSD_KERNEL_CHUNK = 64                   # csrc/ssd_scan.cu's own chunk
+SSD_TOL = 1e-5        # against the recurrence; twice it against the plain
+                      # version (tests/test_torch_cuda.py says why)
+
+
+def ssd_scan_work(bsz: int, l: int, h: int, p: int, n: int, g: int,
+                  q: int) -> tuple[float, float]:
+    """The bytes and float32 operations one grouped scan needs at the chunk
+    ``q``: x, B, C and dt read once, y and the final state written once;
+    the carried-in state's and the chunk state's products, 2 P N operations
+    a step and head each, which every chunk length needs; and the lower
+    triangles, diagonal included, of C B^T once per group and of the
+    intra-chunk product (two operations a multiply-add).  The triangles
+    grow with ``q``, so the count is taken at the kernel's own chunk."""
+    nbytes = 4 * (2 * bsz * l * h * p + 2 * bsz * l * g * n + bsz * l * h
+                  + bsz * h * p * n)
+    pairs = l * (q + 1) / 2         # (step, step at or before it in its chunk)
+    nops = 2 * (2 * bsz * h * l * p * n
+                + pairs * (bsz * g * n + bsz * h * p))
+    return nbytes, nops
+
+
+def phase_ssd_scan(dev) -> dict:
+    """The grouped SSD scan kernel at one mixer's shape of the chat cell
+    (batch 16, L 2048, H 112, P = N = 64, G 2; x, B and C strided views
+    of one seeded conv output, as ``mixer_block`` hands them) against its
+    plain version at the config's chunk: y and the final state within
+    ``2 SSD_TOL`` of the answer's largest magnitude, and within
+    ``SSD_TOL`` of the step-by-step grouped recurrence (float32 all,
+    another summation order); device ms of both beside the float32 bound.
+    Replaces no TPU kernel: the JAX package's scan is plain JAX.  The
+    row's launch columns are filled by the phases after this one; the
+    served Zamba2-7B's are :func:`phase_lm_zamba2_7b`'s."""
+    from repro_torch.kernels import ssd_scan as K
+
+    ins = K.scan_inputs(*SSD_SHAPE, seed=SEED + 6, device=dev)
+    got = K.ssd_scan_cuda(*ins)
+    gaps = {}
+    for label, want in (("plain", K.ssd_scan_plain(*ins, SSD_CHUNK)),
+                        ("stepwise", K.ssd_scan_stepwise(*ins))):
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        gaps[label] = [e / b.abs().max().item() for e, b in zip(errs, want)]
+        if label == "plain":
+            max_err = max(errs)
+        del want
+    require(max(gaps["plain"]) < 2 * SSD_TOL
+            and max(gaps["stepwise"]) < SSD_TOL,
+            f"ssd_scan within {SSD_TOL} of the recurrence and twice it of "
+            f"its plain version ({gaps})")
+    nbytes, nops = ssd_scan_work(*SSD_SHAPE, SSD_KERNEL_CHUNK)
+    r = dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="none (the JAX package's scan is plain JAX)",
+             on_path="zamba2_7b prefill, every mixer (mixer_block)",
+             max_abs_err=max_err,
+             ms=cuda_ms(lambda: K.ssd_scan_cuda(*ins), reps=20),
+             plain_ms=cuda_ms(lambda: K.ssd_scan_plain(*ins, SSD_CHUNK),
+                              reps=3),
+             shape="x".join(map(str, SSD_SHAPE)), **bound(nbytes, nops))
+    log("kernel", name="ssd_scan", shape=r["shape"], ms=round(r["ms"], 4),
+        plain_ms=round(r["plain_ms"], 4), bound_ms=round(r["bound_ms"], 4),
+        bound_by=r["bound_by"], gflop=round(nops / 1e9, 3),
+        gap_plain=gaps["plain"], gap_stepwise=gaps["stepwise"])
+    return r
 
 
 def service_model(policy, telemetry) -> dict:
@@ -2697,18 +2774,83 @@ def phase_lm_family(arch: str, dev, card: str, seed: int) -> dict:
 def phase_lm_models(dev, card: str) -> tuple[list, dict]:
     """Phase 12: Mamba2-2.7B, Zamba2-2.7B and Whisper-medium served at full
     width, which runs no hand-written kernel: the launch counts are set to
-    0 before the phase and read after it."""
+    0 before the phase and read after it.  The two SSM layouts' scans run
+    the plain version on the card; each family's line counts them
+    (``ssd_scan_plain_on_card``)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as K
     torch.cuda.synchronize()
     _build.reset_launches()
-    lines = [(name, phase_lm_family(arch, dev, card, SEED + 50 + 2 * i))
-             for i, (name, arch) in enumerate(LM_FAMILIES)]
+    lines = []
+    for i, (name, arch) in enumerate(LM_FAMILIES):
+        plain = K.plain_on_card
+        fields = phase_lm_family(arch, dev, card, SEED + 50 + 2 * i)
+        fields["ssd_scan_plain_on_card"] = K.plain_on_card - plain
+        lines.append((name, fields))
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     require(sum(counts.values()) == 0, f"the LM families launched {counts}")
     for _, fields in lines:
         fields["kernel_launches"] = 0
     return lines, counts
+
+
+ZAMBA_ARCH = "zamba2_7b"
+ZAMBA_CUT = dict(n_layers=2, hybrid_layer_ids=(1,))  # a mixer, a shared
+                                                     # block, a mixer
+ZAMBA_REQUESTS, ZAMBA_PROMPT, ZAMBA_GEN = 16, 2048, 8  # the chat cell's
+                                                       # batch and prompt
+
+
+def phase_lm_zamba2_7b(dev, card: str) -> tuple[list, dict]:
+    """Phase 12b: the published Zamba2-7B layout at full width, cut to
+    ZAMBA_CUT's depth, in bf16 (seeded) through ``launch.serve.serve`` at
+    the chat cell's batch and prompt length: one warm-up call, then the
+    launch counts set to 0 and one counted call.  Its prefill launches the
+    scan kernel once per mixer and nothing else, and no plain scan runs on
+    the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH), **ZAMBA_CUT)
+    bundle = build_model(cfg)
+    with torch.no_grad():
+        params = bundle.init(seed=SEED + 60, dtype=torch.bfloat16,
+                             device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (ZAMBA_REQUESTS, ZAMBA_PROMPT),
+                            generator=torch.Generator().manual_seed(
+                                SEED + 61)).to(dev)
+    serve(bundle, params, prompts, ZAMBA_GEN)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    plain = K.plain_on_card
+    out = serve(bundle, params, prompts, ZAMBA_GEN)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    plain = K.plain_on_card - plain
+    prefills = 1                       # one serve call, one batched prefill
+    toks = out["tokens"]
+    require(counts["ssd_scan"] == cfg.n_layers * prefills
+            and sum(counts.values()) == counts["ssd_scan"] and plain == 0,
+            f"the served Zamba2-7B launched {counts} for {cfg.n_layers} "
+            f"mixers x {prefills} prefill, {plain} plain scans on the card")
+    require(toks.shape == (ZAMBA_REQUESTS, ZAMBA_GEN)
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            and bool(torch.isfinite(out["logits"].float()).all()),
+            f"served Zamba2-7B tokens {toks.shape}")
+    prefill_ms = out["prefill_s"] * 1e3
+    del params, out
+    torch.cuda.empty_cache()
+    return [("lm_zamba2_7b", dict(
+        card=json.dumps(card), arch=ZAMBA_ARCH, cut=json.dumps(ZAMBA_CUT),
+        requests=ZAMBA_REQUESTS, prompt=ZAMBA_PROMPT, gen=ZAMBA_GEN,
+        prefills=prefills, mixers=cfg.n_layers,
+        ssd_scan_launches=counts["ssd_scan"], ssd_scan_plain_on_card=plain,
+        prefill_ms=round(prefill_ms, 3),
+        launches=json.dumps(counts)))], counts
 
 
 # ------------------------------------- 13. the LM on a one-process mesh
@@ -3746,6 +3888,7 @@ def main() -> int:
     # 2. kernels against their plain versions, at the main path's shapes
     kernels = phase_kernels(dense, packed, x_big)
     kernels.append(phase_c2c(ws[0], x_big))
+    kernels.append(phase_ssd_scan(dev))
     from repro_torch.engine.batched_run import _forward_impl
     b_big, t_big, _ = x_big.shape
     l1 = _forward_impl(dense, x_big, None)[0]
@@ -3900,6 +4043,15 @@ def main() -> int:
         row["lm_models_launches"] = counts_lm[row["name"]]
     phase_s["lm_models"] = lap()
 
+    # 12b. lm_zamba2_7b: the published Zamba2 layout served at full width,
+    # its prefill's mixers on the scan kernel
+    lm_lines, counts_lm = phase_lm_zamba2_7b(dev, card)
+    for name, fields in lm_lines:
+        log(name, **fields)
+    for row in kernels:
+        row["lm_zamba2_7b_launches"] = counts_lm[row["name"]]
+    phase_s["lm_zamba2_7b"] = lap()
+
     # 13. lm_mesh: the MoE (EP, TP), SP decode and the pipeline on meshes
     lm_lines, counts_lm = phase_lm_mesh(dev, card)
     for name, fields in lm_lines:
@@ -3929,8 +4081,8 @@ def main() -> int:
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "socket_launches", "precision_launches", "spikify_launches",
             "train_launches", "sweep_launches", "examples_launches",
-            "mesh_launches", "lm_launches",
-            "lm_models_launches", "lm_mesh_launches", "lm_train_launches",
+            "mesh_launches", "lm_launches", "lm_models_launches",
+            "lm_zamba2_7b_launches", "lm_mesh_launches", "lm_train_launches",
             "dryrun_launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "on_path")
     print(card)

@@ -39,7 +39,7 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("event_synapse", "lif_update", "c2c_matmul")
+SOURCES = ("event_synapse", "lif_update", "c2c_matmul", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,12 +58,15 @@ SIGNATURES = {
     "c2c_matmul": {
         "c2c_matmul_f32_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
+    "ssd_scan": {
+        "ssd_scan_f32": [_P] * 8 + [_L] * 9 + [_I] * 6 + [_P],
+    },
 }
 
 # Launches per kernel, bumped by each wrapper where it launches its kernel;
 # the packed kernel's launches also by weight bit-width.
 launches = {"event_synapse": 0, "event_synapse_packed": 0, "lif_update": 0,
-            "c2c_matmul": 0}
+            "c2c_matmul": 0, "ssd_scan": 0}
 packed_launches_by_bits = {8: 0, 4: 0, 2: 0}
 
 # nvcc's report per source (registers, shared memory, spills from -Xptxas -v)

@@ -4,13 +4,15 @@ The SSD recurrence per head:  h[t] = exp(dt[t] A) h[t-1] + dt[t] B[t] x[t],
 y[t] = C[t]·h[t] + D x[t]: the LIF membrane equation without a firing
 threshold, the same leaky-integrator scan as the MENAGE core.
 
-Chunked scan as in the JAX package: a Python loop over sequence chunks
-carrying the inter-chunk state [B, H, P, N]; the intra-chunk work is the
-masked quadratic-in-Q product (Q = ``ssm_chunk``), written as pairwise
-batched matmuls so the peak buffer is O(B·H·Q²), never O(L²) and never the
-5-D [B, Q, Q, H, P] product.  Decode is the O(1) recurrence; it writes the
-SSM and conv states into the cache tensors in place (the JAX package
-returns a new cache), and the returned cache dict holds the same tensors.
+The full-sequence scan lives in :mod:`repro_torch.kernels.ssd_scan`: the
+chunked scan as in the JAX package (a Python loop over sequence chunks
+carrying the inter-chunk state [B, H, P, N], the intra-chunk work the masked
+quadratic-in-Q product, Q = ``ssm_chunk``, as pairwise batched matmuls), with
+B and C in groups; these older layouts pass one group.  The published
+mixer's scan dispatches to a hand-written CUDA kernel on a card when no
+gradient is recorded.  Decode is the O(1) recurrence; it writes the SSM and
+conv states into the cache tensors in place (the JAX package returns a new
+cache), and the returned cache dict holds the same tensors.
 
 Types sit where the JAX package puts them: the forward's causal conv runs
 in bf16 on bf16 weights, the decode step's in float32; the scan and the
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
+from repro_torch.kernels import ssd_scan as grouped_scan
 from repro_torch.models.layers import (P, bf16_layers, checkpointed,
                                        cross_entropy, embed_rows,
                                        init_params, layer_list, param_axes,
@@ -90,51 +93,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ssd_scan(x, dt, a, b, c, chunk: int):
-    """Chunked SSD.  x [B,L,H,P]; dt [B,L,H]; a [H] (negative);
-    b, c [B,L,N] (single group).  Returns y [B,L,H,P], final state [B,H,P,N].
-
-    Each einsum of the JAX package is a pairwise contraction here: ``dt``
-    is folded into the decay-weighted scores, then one batched matmul over
-    (batch, head) sums over the chunk's steps.
-    """
-    bsz, l, h, p = x.shape
-    n = b.shape[-1]
-    q = min(chunk, l)
-    pad = (-l) % q
-    if pad:
-        # dt=0 on padded steps -> decay exp(0)=1, zero input: state unchanged
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, l + pad, q):
-        xc, dtc = x[:, c0:c0 + q], dt[:, c0:c0 + q]   # [B,q,h,p], [B,q,h]
-        bc, cc = b[:, c0:c0 + q], c[:, c0:c0 + q]     # [B,q,n]
-        cum = torch.cumsum(dtc * a, dim=1)            # [B,q,h] (negative)
-        # intra-chunk: y[l] += sum_{s<=l} C[l]·B[s] exp(cum[l]-cum[s]) dt[s] x[s]
-        seg = cum[:, :, None, :] - cum[:, None, :, :]        # [B,q,q,h]
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
-        scores = cc @ bc.transpose(1, 2)                     # [B,q,q]
-        w = scores[:, :, :, None] * decay * dtc[:, None]     # [B,l,s,h]
-        y = w.permute(0, 3, 1, 2) @ xc.permute(0, 2, 1, 3)   # [B,h,l,p]
-        y = y.permute(0, 2, 1, 3)
-        # contribution of the carried-in state
-        cs = cc @ state.reshape(bsz, h * p, n).transpose(1, 2)   # [B,q,h*p]
-        y = y + cs.reshape(bsz, q, h, p) * torch.exp(cum)[..., None]
-        # new state
-        dec_out = torch.exp(cum[:, -1:, :] - cum)            # [B,q,h]
-        u = (dtc * dec_out)[..., None] * xc                  # [B,q,h,p]
-        new_in = u.permute(0, 2, 3, 1).reshape(bsz, h * p, q) @ bc
-        state = (state * torch.exp(cum[:, -1])[:, :, None, None]
-                 + new_in.reshape(bsz, h, p, n))
-        ys.append(y)
-    return torch.cat(ys, dim=1)[:, :l], state
-
-
 def mamba2_block(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     """One Mamba2 block (full sequence).  x [B, L, d].  Returns the new
     ``x`` and the block's final SSM state [B, H, P, N] (float32)."""
@@ -147,9 +105,9 @@ def mamba2_block(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     dt = softplus(hidden @ lp["w_dt"] + lp["dt_bias"])
     a = -torch.exp(lp["a_log"].float())
     xh = xin.reshape(*xin.shape[:2], h, p)
-    y, state = ssd_scan(xh.float(), dt.float(), a, bmat.float(),
-                        cmat.float(), cfg.ssm_chunk)
-    y = y + lp["d_skip"][None, None, :, None] * xh.float()
+    y, state = grouped_scan.ssd_scan_plain(
+        xh.float(), dt.float(), a, bmat.float()[:, :, None],
+        cmat.float()[:, :, None], lp["d_skip"], cfg.ssm_chunk)  # one group
     y = y.reshape(*xin.shape[:2], d_in).to(x.dtype)
     return x + _gated_norm(y, z, lp, cfg) @ lp["w_out"], state
 
@@ -334,54 +292,6 @@ def _gated_group_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return (v.view(y.shape) * w).to(z.dtype)
 
 
-def ssd_scan_grouped(x, dt, a, b, c, chunk: int):
-    """Chunked SSD with B and C in groups, heads leading.  x [B,H,L,P];
-    dt [B,H,L]; a [H] (negative); b, c [B,G,L,N], head j reading group
-    ``j // (H / G)``.  Returns y [B,H,L,P] and the final state [B,H,P,N]
-    (float32).
-
-    ``dt`` scales the inputs (``u = dt x``) before the products; a chunk's
-    decay-weighted scores ``[B, H, Q, Q]`` are written once and scaled in
-    place, the only tensor quadratic in the chunk."""
-    bsz, h, l, p = x.shape
-    g, n = b.shape[1], b.shape[3]
-    hg = h // g
-    q = min(chunk, l)
-    pad = (-l) % q
-    if pad:
-        # dt=0 on padded steps -> decay exp(0)=1, zero input: state unchanged
-        x = F.pad(x, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
-    u = dt[..., None] * x                                   # [B,H,L,P]
-    above = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                   device=x.device))
-    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, l + pad, q):
-        uc = u[:, :, c0:c0 + q]                             # [B,H,q,P]
-        bc, cc = b[:, :, c0:c0 + q], c[:, :, c0:c0 + q]     # [B,G,q,N]
-        cum = torch.cumsum(dt[:, :, c0:c0 + q] * a[:, None], dim=-1)
-        # y[l] = sum_{s<=l} C[l].B[s] exp(cum[l] - cum[s]) u[s]
-        w = cum[..., :, None] - cum[..., None, :]           # [B,H,q,q]
-        w.masked_fill_(above, -math.inf).exp_()
-        w.view(bsz, g, hg, q, q).mul_((cc @ bc.transpose(2, 3))[:, :, None])
-        y = w @ uc
-        # the carried-in state: y[l] += exp(cum[l]) C[l].state
-        cs = cc @ state.view(bsz, g, hg * p, n).transpose(2, 3)  # [B,G,q,hg*p]
-        y += cs.view(bsz, g, q, hg, p).transpose(2, 3).reshape(
-            bsz, h, q, p) * torch.exp(cum)[..., None]
-        # the new state
-        uo = uc * torch.exp(cum[..., -1:] - cum)[..., None]     # [B,H,q,P]
-        new_in = uo.view(bsz, g, hg, q, p).transpose(3, 4).reshape(
-            bsz, g, hg * p, q) @ bc                         # [B,G,hg*p,N]
-        state = (state * torch.exp(cum[..., -1])[..., None, None]
-                 + new_in.view(bsz, h, p, n))
-        ys.append(y)
-    return torch.cat(ys, dim=2)[:, :, :l], state
-
-
 def mixer_block(h_in: torch.Tensor, lp: dict, cfg):
     """The published mixer over a full sequence (``lp`` with
     :data:`F32_LEAVES` in float32).  ``h_in`` [B, L, d] is the mixer's
@@ -399,13 +309,10 @@ def mixer_block(h_in: torch.Tensor, lp: dict, cfg):
     tail = xp[:, l:]
     xbc = _conv_taps(xp.float(), lp["conv_w"], lp["conv_b"])
     x, bm, cm = xbc.split([d_in, g * n, g * n], dim=-1)
-    xh = x.view(b, l, h, p).transpose(1, 2)              # [B, H, L, P]
-    dt = F.softplus(dt.float() + lp["dt_bias"]).transpose(1, 2)
-    y, state = ssd_scan_grouped(
-        xh, dt, -torch.exp(lp["a_log"]),
-        bm.view(b, l, g, n).transpose(1, 2), cm.view(b, l, g, n).transpose(1, 2),
-        cfg.ssm_chunk)
-    y = (y + lp["d_skip"][:, None, None] * xh).transpose(1, 2)
+    dt = F.softplus(dt.float() + lp["dt_bias"])          # [B, L, H]
+    y, state = grouped_scan.ssd_scan(
+        x.view(b, l, h, p), dt, -torch.exp(lp["a_log"]), bm.view(b, l, g, n),
+        cm.view(b, l, g, n), lp["d_skip"], cfg.ssm_chunk)  # y [B, L, H, P]
     y = _gated_group_norm(y.reshape(b, l, d_in), z, lp["ln_y"], g,
                           cfg.norm_eps)
     return y @ lp["w_out"], state, tail
@@ -450,18 +357,3 @@ def mixer_cache_spec(cfg, batch: int, dtype=torch.bfloat16):
                      "act_head_dim", "act_ssm_state"),
              "conv": ("layers", "cache_batch", "conv_width",
                       "act_ssm_inner")})
-
-
-def mamba2_reference_scan(x, dt, a, b, c):
-    """O(L) step-by-step SSD oracle (tests): returns y, final state."""
-    bsz, l, h, p = x.shape
-    n = b.shape[-1]
-    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(l):
-        xt, dtt, bt, ct = x[:, t], dt[:, t], b[:, t], c[:, t]
-        decay = torch.exp(dtt * a)                           # [B,h]
-        state = (state * decay[:, :, None, None]
-                 + (dtt[:, :, None] * xt)[..., None] * bt[:, None, None, :])
-        ys.append(torch.einsum("bn,bhpn->bhp", ct, state))
-    return torch.stack(ys, dim=1), state

@@ -26,7 +26,9 @@ from torch.autograd import profiler as _profiler
 # run_batched (``engine.replay``, a captured forward's replay, inside
 # ``engine.forward``), the train step's, and the LM launcher's: its prefill
 # and decode steps (``launch/serve.py``), each holding the Zamba2 mixers'
-# and shared-block applications' (``models/zamba2.py``).  Locked like
+# and shared-block applications' (``models/zamba2.py``), a mixer's holding
+# its scan kernel's launch (``lm.ssd_scan``, ``kernels/ssd_scan.py``; on
+# the kernel path only).  Locked like
 # the flight recorder's SPAN_KINDS: the benchmark's readers key on these
 # names.
 STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
@@ -34,7 +36,7 @@ STAGE_SPANS = ("server.dispatch", "serving.execute", "serving.pad",
                "engine.readback", "engine.stats", "serving.record",
                "serving.slice", "train.forward", "train.backward",
                "train.optimizer", "lm.prefill", "lm.decode_step",
-               "lm.mamba", "lm.shared_block")
+               "lm.mamba", "lm.shared_block", "lm.ssd_scan")
 
 _OFF = contextlib.nullcontext()
 _totals_lock = threading.Lock()

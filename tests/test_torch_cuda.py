@@ -1251,6 +1251,109 @@ def test_cuda_zamba2_7b_graphed_decode_equals_eager(card, monkeypatch):
         assert torch.equal(out["logits"], first["logits"])
 
 
+# ------------------------------------------------ the grouped SSD scan
+
+# The kernel (chunks of 64) against the step-by-step grouped recurrence
+# and the plain chunked scan (the config's chunk), all float32, each result
+# within a tolerance of the answer's largest magnitude.  They differ in
+# summation order only, but the plain version's running sums of dt A over
+# 256 steps reach |cum| ~ 35, so each of its exp(cum[l] - cum[s]) carries
+# ~|cum| 2^-24 of relative error: against a float64 recurrence it reads
+# ~4e-6 (the float32 recurrence ~1e-7), and the kernel, on chunks of 64,
+# ~1.4e-6.  So SCAN_TOL against the recurrence, twice it against the plain
+# version.
+SCAN_TOL = 1e-5
+SCAN_PLAIN_TOL = 2e-5
+
+SCAN_SHAPES = {        # batch, L, H, P, N, G, the plain version's chunk
+    "cell": (16, 2048, 112, 64, 64, 2, 256),   # zamba2_7b.chat, one mixer
+    "ragged": (2, 200, 8, 64, 64, 2, 256),     # L not a multiple of 64
+    "short": (2, 37, 8, 64, 64, 2, 256),       # L shorter than one chunk
+    "one_step": (2, 1, 4, 64, 64, 2, 256),     # L = 1
+    "one_group": (2, 300, 6, 64, 64, 1, 256),  # G = 1
+    "smoke": (3, 13, 8, 16, 16, 2, 8),         # Zamba2-7B's SMOKE widths
+}
+
+
+def _scan_close(got, want, what, tol=SCAN_TOL):
+    y, state = got
+    wy, ws = want
+    assert y.shape == wy.shape and state.shape == ws.shape, what
+    for g, w, part in ((y, wy, "y"), (state, ws, "state")):
+        gap = ((g - w).abs().max() / w.abs().max()).item()
+        assert gap < tol, f"{what} {part}: {gap}"
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("shape", sorted(SCAN_SHAPES))
+def test_cuda_ssd_scan_matches_plain_and_stepwise(card, shape, layout):
+    """The kernel on x, B and C as the strided views of one conv output
+    that ``mixer_block`` hands in (or contiguous copies), against the plain
+    version and the grouped recurrence, in output and final state; one
+    launch, counted."""
+    from repro_torch.kernels import ssd_scan as K
+    *dims, chunk = SCAN_SHAPES[shape]
+    ins = K.scan_inputs(*dims, seed=sum(dims), device=card)
+    if layout == "contiguous":
+        ins = tuple(t.contiguous() for t in ins)
+    before = _build.launches["ssd_scan"]
+    got = K.ssd_scan_cuda(*ins)
+    assert _build.launches["ssd_scan"] == before + 1
+    assert got[0].is_contiguous() and got[0].dtype == torch.float32
+    _scan_close(got, K.ssd_scan_stepwise(*ins), f"{shape} stepwise")
+    _scan_close(got, K.ssd_scan_plain(*ins, chunk), f"{shape} plain",
+                SCAN_PLAIN_TOL)
+
+
+def test_cuda_ssd_scan_dispatch_and_sync_free(card):
+    """``ssd_scan`` on card tensors launches the kernel under ``no_grad``
+    and reads nothing back; with a gradient recorded it runs the plain
+    version, counted in ``plain_on_card``, launches nothing, and the
+    gradient flows."""
+    from repro_torch.kernels import ssd_scan as K
+    ins = K.scan_inputs(2, 70, 8, 64, 64, 2, device=card)
+    before = _build.launches["ssd_scan"]
+    plain = K.plain_on_card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = K.ssd_scan(*ins, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.launches["ssd_scan"] == before + 1
+    assert K.plain_on_card == plain
+    a = ins[2].clone().requires_grad_()
+    y, state = K.ssd_scan(*ins[:2], a, *ins[3:], 256)
+    (y.sum() + state.sum()).backward()
+    assert _build.launches["ssd_scan"] == before + 1
+    assert K.plain_on_card == plain + 1
+    assert torch.isfinite(a.grad).all()
+    _scan_close(got, (y.detach(), state.detach()), "dispatch")
+
+
+def test_cuda_zamba2_7b_served_bf16_with_the_scan_kernel(card):
+    """Zamba2-7B at its SMOKE size served in bf16 on the card, the prefill's
+    every mixer through the scan kernel: each block and each step's logits
+    within the chat cell's ``block_gap`` and ``logit_gap`` against the
+    plain float32 reference on the recorded inputs."""
+    from test_torch_lm_zamba2_7b import BUNDLE, CFG, GEN, LIMITS, PROMPT
+    from test_torch_lm_zamba2_7b import Blocks
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch import serve as S
+    params = BUNDLE.init(seed=0, dtype=torch.float32, device="cpu")
+    p16 = tree_map(lambda a: a.to(card, torch.bfloat16), params)
+    tokens = torch.randint(0, CFG.vocab_size, (3, PROMPT + GEN),
+                           generator=torch.Generator().manual_seed(1))
+    before = _build.launches["ssd_scan"]
+    with Blocks() as rec:
+        out = S.serve(BUNDLE, p16, tokens[:, :PROMPT].to(card), GEN)
+    assert _build.launches["ssd_scan"] == before + CFG.n_layers
+    assert out["tokens"].shape == (3, GEN)
+    block, logit = rec.gaps(p16)
+    assert block < LIMITS["block_gap"] and logit < LIMITS["logit_gap"]
+
+
 # ---------------------------------------------- the LM on a spoofed mesh
 
 def _spoofed(shape, axes, device):

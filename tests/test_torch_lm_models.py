@@ -27,6 +27,7 @@ from repro.models.layers import naive_attention as ref_naive_attention
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.core.pytree import tree_leaves
+from repro_torch.kernels import ssd_scan as K
 from repro_torch.models import build_model
 from repro_torch.models import mamba2 as M
 from repro_torch.models import whisper as W
@@ -106,7 +107,9 @@ def _logits(arch, side, params, cfg, batch):
 def test_ssd_scan_matches_reference(l):
     """The chunked scan (chunks of 8; 13 pads its last chunk with dt = 0
     steps, 5 is one short chunk) against the reference's chunked scan and
-    both sequential oracles, y and the final state, in float32."""
+    both sequential oracles, y and the final state, in float32.  The port
+    runs it as the grouped scan with one group and no D skip, as
+    ``mamba2_block`` hands it B and C."""
     rng = np.random.default_rng(l)
     b, h, p, n = 2, 3, 4, 5
     x = rng.normal(size=(b, l, h, p)).astype(np.float32)
@@ -116,8 +119,10 @@ def test_ssd_scan_matches_reference(l):
     cm = rng.normal(size=(b, l, n)).astype(np.float32)
     want = RM.ssd_scan(*map(jnp.asarray, (x, dt, a, bm, cm)), chunk=8)
     oracle = RM.mamba2_reference_scan(*map(jnp.asarray, (x, dt, a, bm, cm)))
-    got = M.ssd_scan(*map(_t, (x, dt, a, bm, cm)), chunk=8)
-    seq = M.mamba2_reference_scan(*map(_t, (x, dt, a, bm, cm)))
+    one = (*map(_t, (x, dt, a)), _t(bm)[:, :, None], _t(cm)[:, :, None],
+           torch.zeros(h))
+    got = K.ssd_scan_plain(*one, chunk=8)
+    seq = K.ssd_scan_stepwise(*one)
     for g, w, what in ((got, want, "chunked"), (got, oracle, "oracle"),
                        (seq, oracle, "sequential")):
         for gi, wi, part in zip(g, w, ("y", "state")):

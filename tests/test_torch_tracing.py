@@ -274,7 +274,7 @@ def test_stage_spans_are_locked():
         "engine.forward", "engine.replay", "engine.readback", "engine.stats",
         "serving.record", "serving.slice", "train.forward", "train.backward",
         "train.optimizer", "lm.prefill", "lm.decode_step", "lm.mamba",
-        "lm.shared_block")
+        "lm.shared_block", "lm.ssd_scan")
 
 
 def _stage_events(prof):
